@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels (``csrc/``) behind wrappers that run their plain
+PyTorch versions on CPU tensors.  Nothing is compiled at import time."""

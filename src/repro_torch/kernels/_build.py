@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` (one ``nvcc`` per source, all
+started together) and linked into one shared library with a plain C
+interface, loaded with ``ctypes`` — a build of seconds, where a PyTorch
+extension that includes the torch headers takes minutes.  The library lands
+in ``build/repro_torch/`` under the checkout, named by a hash of the sources
+and flags, at first use: no binary is committed and nothing is built when a
+module is imported.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: name -> argtypes (restype is int, the cudaError_t)
+_SIGNATURES = {
+    # q, k, v, out, B, S, T, H, KV, dh, q_offset, window, causal, scale,
+    # dtype (0 f32 / 1 bf16), stream
+    "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_F, _I, _P],
+    # q, k_pages, v_pages, block_tables, lengths, out, S, H, KV, dh,
+    # page_size, pages_per_slot, scale, q dtype, pages dtype, stream
+    "paged_decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+builds = 0  # nvcc runs performed by this process
+build_log = ""  # nvcc's output (ptxas register/shared-memory report)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).exists():
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build only where the CUDA "
+            "toolkit is installed"
+        )
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(so: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link.
+    Returns nvcc's combined output; raises if any step fails."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = _BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append(
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        )
+    log = []
+    for p in procs:
+        out, _ = p.communicate()
+        log.append(out)
+        if p.returncode != 0:
+            for q in procs:
+                q.wait()
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{''.join(log)}")
+    tmp = _BUILD_DIR / f"{tag}.so"
+    link = subprocess.run(
+        [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+        capture_output=True,
+        text=True,
+    )
+    log.append(link.stdout + link.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{''.join(log)}")
+    os.replace(tmp, so)
+    return "".join(log)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if this source hash has no build."""
+    global _lib, builds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not so.exists():
+            build_log = _compile(so)
+            builds += 1
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -1,0 +1,598 @@
+"""Serving: a continuous-batching engine over a paged KV cache, plus the
+static-batch driver it is checked against (counterpart of
+``repro.launch.serve``).
+
+``ServeEngine``:
+
+* **Prefill buckets.** Prompts pad (after the prompt — causal masking makes
+  the tail inert) to power-of-two buckets; ``warmup()`` builds the CUDA
+  kernels, allocates the page pool and runs every bucket once.  PyTorch
+  runs eagerly, so there is no compile to cache: ``compile_count`` counts
+  the kernel-library builds (``nvcc``) the engine triggered — 0 on the CPU
+  and when ``build/repro_torch/`` already holds a build of these sources —
+  and it does not grow after ``warmup()``.
+* **Slots + page table.** Decode state is persistent at
+  ``max_concurrent_decodes`` slots over a shared KV page pool
+  (``[L, n_pages, page_size, KV, dh]``).  Each slot owns a fixed set of
+  physical pages recorded in a host-side block table; insert/evict is a
+  page-table edit, never a cache copy.  Page 0 is the null page that free
+  slots' decode writes land on.
+* **Paged decode kernel.** Each step runs one fixed-shape
+  ``decode_step_paged`` over all slots; on the card its attention is the
+  hand-written paged decode kernel, and prefill attention the flash kernel.
+* **Threaded detokenize.** Emitted tokens go to a daemon worker through an
+  unbounded queue; the backlog drains at ``finish()``.
+* **Page-budget exhaustion.** A request whose ``max_new`` overruns its
+  slot's page quota is admitted with a truncated emission budget, flagged
+  in its result and in stats.
+
+Every per-slot op in the decode step is row-independent, so a request's
+token stream is bitwise-identical whether it is served alone or next to
+arbitrary other requests.  Greedy decoding is ``argmax``.  Temperature
+sampling draws Gumbel noise from a ``torch.Generator`` seeded from (request
+seed, emitted position), so a request's stream does not depend on its
+neighbours either — but it does not replay the reference's ``jax.random``
+bits.  Speculative decoding is not ported yet (it needs the paged verify
+kernel, ROADMAP.md Queue B).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-125m \
+        --engine --batch 8 --prompt-len 32 --max-new 16 [--device cpu --smoke]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import _build
+from repro_torch.models import build_model
+
+
+@dataclass
+class Request:
+    """One serving request.  ``arrival`` is seconds since serve() start
+    (wall-clock admission), or a decode-step index under ``step_clock``
+    (deterministic tests); ``seed`` keys the per-request sampling stream."""
+
+    id: str
+    tokens: np.ndarray
+    max_new: int = 16
+    arrival: float = 0.0
+    seed: int = 0
+
+
+@dataclass
+class _Live:
+    """Host-side state of a request occupying a slot.  ``budget`` is the
+    emission budget actually granted (``req.max_new``, or less when the
+    slot's page quota can't hold it — then ``truncated`` is set)."""
+
+    req: Request
+    slot: int
+    generated: int = 0
+    budget: int = 0
+    truncated: bool = False
+
+
+class SlotScheduler:
+    """Host-side slot and page-table bookkeeping for the engine.
+
+    Invariants (``check_invariants`` asserts them):
+
+    * no double-occupancy: a request id occupies at most one slot;
+    * every occupied slot owns exactly ``pages_per_slot`` distinct physical
+      pages, disjoint from every other slot's and from the free list;
+    * free pages ∪ owned pages == {1 .. n_pages-1} (page 0 is the reserved
+      null page and is never owned);
+    * ``live_tokens()`` equals the sum of occupied slots' lengths, exactly.
+
+    Pages are handed out from a FIFO free list that evictions append to, so
+    long-running traces shuffle the physical layout.
+    """
+
+    def __init__(self, n_slots: int, pages_per_slot: int, n_pages: int):
+        assert n_pages >= n_slots * pages_per_slot + 1, (n_pages, n_slots, pages_per_slot)
+        self.n_slots = n_slots
+        self.pages_per_slot = pages_per_slot
+        self.n_pages = n_pages
+        self.block_tables = np.zeros((n_slots, pages_per_slot), np.int32)
+        self.lengths = np.zeros((n_slots,), np.int32)
+        self.requests: list[str | None] = [None] * n_slots
+        self._free_slots: deque[int] = deque(range(n_slots))
+        self._free_pages: deque[int] = deque(range(1, n_pages))
+
+    def has_free_slot(self) -> bool:
+        return bool(self._free_slots)
+
+    def occupied(self) -> list[int]:
+        return [s for s in range(self.n_slots) if self.requests[s] is not None]
+
+    def insert(self, req_id: str, n_tokens: int) -> int:
+        """Claim a free slot and its page quota for ``req_id``; returns the
+        slot."""
+        assert self._free_slots, "insert with no free slot"
+        assert req_id not in self.requests, f"{req_id} already resident"
+        slot = self._free_slots.popleft()
+        pages = [self._free_pages.popleft() for _ in range(self.pages_per_slot)]
+        self.block_tables[slot] = pages
+        self.lengths[slot] = n_tokens
+        self.requests[slot] = req_id
+        return slot
+
+    def evict(self, slot: int) -> str:
+        """Release a slot: its pages go back on the free list, the table row
+        points at the null page."""
+        rid = self.requests[slot]
+        assert rid is not None, f"evict of free slot {slot}"
+        self._free_pages.extend(int(p) for p in self.block_tables[slot])
+        self.block_tables[slot] = 0
+        self.lengths[slot] = 0
+        self.requests[slot] = None
+        self._free_slots.append(slot)
+        return rid
+
+    def live_tokens(self) -> int:
+        return int(self.lengths.sum())
+
+    def check_invariants(self) -> None:
+        occ = self.occupied()
+        rids = [self.requests[s] for s in occ]
+        assert len(rids) == len(set(rids)), f"double-occupancy: {rids}"
+        owned: list[int] = []
+        for s in range(self.n_slots):
+            row = [int(p) for p in self.block_tables[s]]
+            if self.requests[s] is None:
+                assert row == [0] * self.pages_per_slot, (s, row)
+                assert self.lengths[s] == 0, (s, self.lengths[s])
+            else:
+                owned.extend(row)
+        free = list(self._free_pages)
+        assert 0 not in owned and 0 not in free, "null page leaked"
+        combined = owned + free
+        assert len(combined) == len(set(combined)), "page owned twice"
+        assert set(combined) == set(range(1, self.n_pages)), "page lost"
+        assert sorted(occ + list(self._free_slots)) == list(range(self.n_slots))
+
+
+class _DetokenizeWorker(threading.Thread):
+    """Daemon thread draining emitted (request, token, time) triples; the
+    decode loop's ``put`` never blocks."""
+
+    def __init__(self, detokenize):
+        super().__init__(daemon=True)
+        self._q: queue.Queue = queue.Queue()
+        self._detok = detokenize
+        self.results: dict[str, dict] = {}
+
+    def put(self, rid: str, token: int, t: float) -> None:
+        self._q.put((rid, token, t))
+
+    def run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            rid, tok, t = item
+            r = self.results.setdefault(rid, {"tokens": [], "text": [], "times": []})
+            r["tokens"].append(tok)
+            r["text"].append(self._detok(tok))
+            r["times"].append(t)
+            self._q.task_done()
+
+    def finish(self) -> dict[str, dict]:
+        self._q.put(None)
+        self._q.join()
+        self.join()
+        return self.results
+
+
+def _stream_seed(seed: int, position: int) -> int:
+    """Seed of the generator for one (request, emitted position) draw."""
+    return ((seed & 0xFFFFFFFF) << 32) | (position & 0xFFFFFFFF)
+
+
+def _gumbel_argmax(row: torch.Tensor, temperature: float, seed: int) -> int:
+    """One categorical draw from ``softmax(row / temperature)`` (``row``: f32
+    logits on the CPU) by the Gumbel-max trick, with noise from a CPU
+    generator seeded by ``seed`` — the same draw on every device."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(row.shape[-1], generator=g)
+    return int(torch.argmax(row / temperature - torch.log(-torch.log(u))))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """Continuous-batching serving engine (see module docstring)."""
+
+    def __init__(
+        self,
+        cfg,
+        params=None,
+        *,
+        max_concurrent_decodes: int = 4,
+        max_prompt_len: int = 64,
+        max_new_tokens: int = 32,
+        page_size: int = 16,
+        eos_id: int = -1,
+        temperature: float = 0.0,
+        seed: int = 0,
+        detokenize=None,
+        device: str | torch.device = "cuda",
+    ):
+        assert page_size > 0 and page_size & (page_size - 1) == 0, page_size
+        self.cfg = cfg
+        self.model = build_model(cfg, device)
+        self.device = self.model.device
+        self.params = (
+            params
+            if params is not None
+            else self.model.init(torch.Generator().manual_seed(seed))
+        )
+        self.n_slots = max_concurrent_decodes
+        self.page_size = page_size
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self._detok = detokenize or (lambda t: f"<{t}>")
+
+        bucket_cap = page_size
+        while bucket_cap < max_prompt_len:
+            bucket_cap *= 2
+        self.buckets: list[int] = []
+        b = page_size
+        while b <= bucket_cap:
+            self.buckets.append(b)
+            b *= 2
+        cap = bucket_cap + max_new_tokens
+        self.pages_per_slot = -(-cap // page_size)
+        self.capacity = self.pages_per_slot * page_size
+        self._n_pool = self.n_slots * self.pages_per_slot + 1
+        self.scheduler = SlotScheduler(self.n_slots, self.pages_per_slot, self._n_pool)
+        self.cache = None
+        self._compile_count = 0
+
+    # ------------------------------------------------------------------
+    # warmup
+    # ------------------------------------------------------------------
+    @property
+    def compile_count(self) -> int:
+        """Kernel-library builds (nvcc runs) this engine triggered; frozen
+        once warmup() has run."""
+        return self._compile_count
+
+    def warmup(self) -> None:
+        """Build the kernels, allocate the page pool and run every prefill
+        bucket and one decode step once.  The decode step runs with every
+        slot free, so its writes land on the null page."""
+        if self.cache is not None:
+            return
+        if self.device.type == "cuda":
+            before = _build.builds
+            _build.load()
+            self._compile_count += _build.builds - before
+        self.cache = self.model.init_paged_cache(self._n_pool, self.page_size)
+        dev = self.device
+        for bkt in self.buckets:
+            tokens = torch.zeros((1, bkt), dtype=torch.int32, device=dev)
+            self.model.prefill_paged(self.params, tokens, 1)
+        S, P = self.n_slots, self.pages_per_slot
+        zeros = torch.zeros((S,), dtype=torch.int32, device=dev)
+        tables = torch.zeros((S, P), dtype=torch.int32, device=dev)
+        self.model.decode_step_paged(self.params, self.cache, tables, zeros, zeros)
+        _sync(dev)
+
+    # ------------------------------------------------------------------
+    # serve loop
+    # ------------------------------------------------------------------
+    def _bucket_for(self, n: int) -> int:
+        for bkt in self.buckets:
+            if n <= bkt:
+                return bkt
+        raise ValueError(f"prompt length {n} exceeds the largest bucket {self.buckets[-1]}")
+
+    def _sample(self, logits: torch.Tensor, rows: list[int], lives: list[_Live]) -> list:
+        """Next token for each listed row: greedy argmax, or a draw from the
+        request's own (seed, emitted position) stream."""
+        if self.temperature <= 0.0:
+            toks = torch.argmax(logits, dim=-1).cpu().numpy()
+            return [int(toks[r]) for r in rows]
+        host = logits[rows].float().cpu()  # one copy per step, not per slot
+        return [
+            _gumbel_argmax(host[i], self.temperature, _stream_seed(lv.req.seed, lv.generated))
+            for i, lv in enumerate(lives)
+        ]
+
+    def _admit(self, req: Request, worker, live: dict, fed: np.ndarray, clock):
+        """Prefill + first sample for ``req``; returns (first-token time,
+        truncated).  The emission budget ``capacity - n + 1`` is exact
+        because the final emitted token needs no KV slot."""
+        n = int(len(req.tokens))
+        bkt = self._bucket_for(n)
+        budget = min(req.max_new, self.capacity - n + 1)
+        padded = np.zeros((1, bkt), np.int32)
+        padded[0, :n] = np.asarray(req.tokens, np.int32)
+        logits, k_new, v_new = self.model.prefill_paged(
+            self.params, torch.from_numpy(padded).to(self.device), n
+        )
+        slot = self.scheduler.insert(req.id, n)
+        page_ids = self.scheduler.block_tables[slot][: bkt // self.page_size]
+        self.model.insert_pages(
+            self.cache, k_new, v_new, torch.from_numpy(page_ids.astype(np.int64)).to(self.device)
+        )
+        lv = _Live(req=req, slot=slot, budget=budget, truncated=budget < req.max_new)
+        tok0 = self._sample(logits, [0], [lv])[0]
+        lv.generated = 1
+        t_first = clock()
+        worker.put(req.id, tok0, t_first)
+        fed[slot] = tok0
+        live[slot] = lv
+        if (self.eos_id >= 0 and tok0 == self.eos_id) or lv.budget <= 1:
+            self.scheduler.evict(slot)
+            del live[slot]
+            fed[slot] = 0
+        return t_first, lv.truncated
+
+    def serve(self, requests: list[Request], *, step_clock: bool = False) -> tuple[dict, dict]:
+        """Serve a workload to completion.  Requests are admitted once their
+        ``arrival`` has passed (wall seconds, or decode-step index under
+        ``step_clock``) and a slot is free, in arrival order.  Returns
+        (per-request results, aggregate stats)."""
+        self.warmup()
+        sched = self.scheduler
+        dev = self.device
+        pending: deque[Request] = deque(sorted(requests, key=lambda r: r.arrival))
+        worker = _DetokenizeWorker(self._detok)
+        worker.start()
+        live: dict[int, _Live] = {}
+        fed = np.zeros((self.n_slots,), np.int32)
+        ttft: dict[str, float] = {}
+        queue_t: dict[str, float] = {}
+        truncated: dict[str, bool] = {}
+        t0 = time.perf_counter()
+        step = 0
+        emitted = 0
+
+        def clock():
+            return float(step) if step_clock else time.perf_counter() - t0
+
+        while pending or live:
+            now = clock()
+            while pending and pending[0].arrival <= now and sched.has_free_slot():
+                req = pending.popleft()
+                queue_t[req.id] = clock() - req.arrival
+                t_first, trunc = self._admit(req, worker, live, fed, clock)
+                ttft[req.id] = t_first - req.arrival
+                truncated[req.id] = trunc
+                emitted += 1
+            if not live:
+                if step_clock:
+                    step += 1
+                else:
+                    time.sleep(1e-4)
+                continue
+            logits, self.cache = self.model.decode_step_paged(
+                self.params,
+                self.cache,
+                torch.from_numpy(sched.block_tables.copy()).to(dev),
+                torch.from_numpy(sched.lengths.copy()).to(dev),
+                torch.from_numpy(fed.copy()).to(dev),
+            )
+            slots = list(live)
+            toks = self._sample(logits, slots, [live[s] for s in slots])
+            step += 1
+            t_now = clock()
+            for slot, tok in zip(slots, toks):
+                lv = live[slot]
+                lv.generated += 1
+                sched.lengths[slot] += 1
+                worker.put(lv.req.id, tok, t_now)
+                emitted += 1
+                fed[slot] = tok
+                hit_eos = self.eos_id >= 0 and tok == self.eos_id
+                if hit_eos or lv.generated >= lv.budget:
+                    sched.evict(slot)
+                    del live[slot]
+                    fed[slot] = 0
+        wall = time.perf_counter() - t0
+        raw = worker.finish()
+        results = {
+            rid: {
+                "tokens": np.asarray(r["tokens"], np.int32),
+                "text": "".join(r["text"]),
+                "times": r["times"],
+                "ttft_s": ttft[rid],
+                "queue_time_s": queue_t[rid],
+                "truncated": truncated[rid],
+            }
+            for rid, r in raw.items()
+        }
+        ttfts = sorted(ttft.values())
+        queues = sorted(queue_t.values())
+
+        def _pct(xs, q):
+            return round(1e3 * float(np.percentile(xs, q)), 3) if xs else 0.0
+
+        stats = {
+            "requests": len(requests),
+            "emitted_tokens": emitted,
+            "live_tokens": int(sum(len(r["tokens"]) for r in results.values())),
+            "decode_steps": step,
+            "wall_s": round(wall, 4),
+            "tok_per_s": round(emitted / max(wall, 1e-9), 1),
+            "ttft_p50_ms": _pct(ttfts, 50),
+            "ttft_p99_ms": _pct(ttfts, 99),
+            "queue_p50_ms": _pct(queues, 50),
+            "queue_p99_ms": _pct(queues, 99),
+            "truncated_requests": int(sum(truncated.values())),
+            "max_concurrent_decodes": self.n_slots,
+            "page_size": self.page_size,
+            "compile_count": self.compile_count,
+            "spec_decode": False,
+            "device": str(dev),
+        }
+        return results, stats
+
+
+class BatchedServer:
+    """Static-batch driver: one prefill, lockstep decode, rows frozen at
+    EOS.  Kept as the engine's oracle."""
+
+    def __init__(self, cfg, params=None, max_len: int = 512, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.model = build_model(cfg, device)
+        self.device = self.model.device
+        self.params = (
+            params
+            if params is not None
+            else self.model.init(torch.Generator().manual_seed(seed))
+        )
+        self.max_len = max_len
+
+    def generate(
+        self,
+        prompts: np.ndarray,  # [B, S] int32
+        max_new_tokens: int = 32,
+        eos_id: int = -1,
+        temperature: float = 0.0,
+        seed: int = 0,
+    ) -> tuple[np.ndarray, dict]:
+        B = prompts.shape[0]
+        dev = self.device
+        t0 = time.perf_counter()
+        tokens_t = torch.from_numpy(np.asarray(prompts, np.int32)).to(dev)
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens_t}, self.max_len)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        out = []
+        done = np.zeros(B, bool)
+        live = np.zeros(B, np.int64)
+        # Finished rows are frozen: their emitted token is pinned to eos_id
+        # (pad 0 without EOS), and that pinned token feeds the next step.
+        fill = eos_id if eos_id >= 0 else 0
+        tok = self._sample(logits, temperature, _stream_seed(seed, 0))
+        ttft_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for i in range(max_new_tokens):
+            emitted = np.where(done, fill, tok).astype(np.int32)
+            out.append(emitted)
+            live += ~done  # the EOS token itself still counts live
+            done |= emitted == eos_id
+            if done.all() or i == max_new_tokens - 1:
+                break
+            logits, cache = self.model.decode_step(
+                self.params, cache, torch.from_numpy(emitted).to(dev)
+            )
+            tok = self._sample(logits, temperature, _stream_seed(seed, i + 1))
+        decode_s = time.perf_counter() - t1
+        tokens = np.stack(out, axis=1)
+        live_total = int(live.sum())
+        stats = {
+            "prefill_s": round(prefill_s, 4),
+            "ttft_s": round(ttft_s, 4),
+            "decode_s": round(decode_s, 4),
+            "live_tokens": live_total,
+            "decode_tok_per_s": round(live_total / max(decode_s, 1e-9), 1),
+        }
+        return tokens, stats
+
+    @staticmethod
+    def _sample(logits, temperature, seed) -> np.ndarray:
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        g = torch.Generator().manual_seed(seed)
+        u = torch.rand(logits.shape, generator=g)
+        z = logits.float().cpu() / temperature - torch.log(-torch.log(u))
+        return torch.argmax(z, dim=-1).to(torch.int32).numpy()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="opt-125m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument(
+        "--eos-id",
+        type=int,
+        default=-1,
+        help="EOS token id; -1 disables early stop",
+    )
+    ap.add_argument(
+        "--engine",
+        action="store_true",
+        help="serve through the continuous-batching ServeEngine instead of "
+        "the static-batch loop",
+    )
+    ap.add_argument("--max-concurrent", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument(
+        "--spec-decode",
+        action="store_true",
+        help="speculative decoding: not ported yet (needs the paged verify kernel)",
+    )
+    ap.add_argument("--draft-len", type=int, default=4, help="with --spec-decode")
+    ap.add_argument(
+        "--device",
+        default="cuda",
+        help="cuda (the default; the hand-written kernels) or cpu (their plain "
+        "PyTorch versions)",
+    )
+    args = ap.parse_args(argv)
+    if args.spec_decode:
+        ap.error(
+            "--spec-decode is not ported yet: it needs the paged verify "
+            "attention kernel (ROADMAP.md Queue B)"
+        )
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    rng = np.random.default_rng(0)
+    size = (args.batch, args.prompt_len)
+    prompts = rng.integers(2, cfg.vocab_size, size=size).astype(np.int32)
+    if args.engine:
+        engine = ServeEngine(
+            cfg,
+            max_concurrent_decodes=args.max_concurrent,
+            max_prompt_len=args.prompt_len,
+            max_new_tokens=args.max_new,
+            page_size=args.page_size,
+            eos_id=args.eos_id,
+            temperature=args.temperature,
+            device=args.device,
+        )
+        reqs = [
+            Request(id=f"r{i}", tokens=prompts[i], max_new=args.max_new)
+            for i in range(args.batch)
+        ]
+        _, stats = engine.serve(reqs)
+        print(json.dumps(stats, indent=1))
+        return
+    server = BatchedServer(
+        cfg, max_len=args.prompt_len + args.max_new + 1, device=args.device
+    )
+    tokens, stats = server.generate(
+        prompts,
+        max_new_tokens=args.max_new,
+        eos_id=args.eos_id,
+        temperature=args.temperature,
+    )
+    print(json.dumps({"generated_shape": list(tokens.shape), **stats}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,63 @@
+"""Parameter bridge from the reference's numpy parameter trees.
+
+``params_from_numpy`` turns the reference's parameter pytree, given as
+numpy arrays, into the port's parameter dict: the same nested keys and the
+same stacked ``[L, ...]`` layout.  bf16 leaves cross as their uint16 bit
+patterns, so the bridge is exact and needs neither JAX nor ``ml_dtypes``.
+
+``load_reference_checkpoint`` reads the reference checkpointer's on-disk
+layout (``arrays.npz`` keyed by leaf path plus ``manifest.json``) with numpy
+alone.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+_PATH_KEY = re.compile(r"\['([^']*)'\]")
+
+
+def tensor_from_numpy(
+    arr: np.ndarray, device: torch.device | str = "cpu", bf16: bool = False
+) -> torch.Tensor:
+    """One leaf.  ``bf16`` marks a 2-byte array holding bfloat16 bits (an
+    ``ml_dtypes`` bfloat16 array is recognised by its dtype name)."""
+    arr = np.ascontiguousarray(arr)
+    if bf16 or arr.dtype.name == "bfloat16":
+        bits = arr.view(np.uint16).astype(np.int16, copy=False)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def params_from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
+    """Nested dict of numpy arrays -> nested dict of tensors (same keys)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(np.asarray(tree), device)
+
+
+def load_reference_checkpoint(
+    step_dir: str | Path, device: torch.device | str = "cpu"
+) -> dict:
+    """Read one ``step_NNNNNNNN`` directory of the reference checkpointer
+    into a nested dict of tensors keyed as the saved pytree was."""
+    step_dir = Path(step_dir)
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    out: dict = {}
+    with np.load(step_dir / "arrays.npz") as arrays:
+        for path, (shape, dtype) in manifest["paths"].items():
+            keys = _PATH_KEY.findall(path)
+            if "".join(f"['{k}']" for k in keys) != path:
+                raise ValueError(f"unsupported leaf path {path!r} (dict keys only)")
+            arr = arrays[path].reshape(shape)
+            node = out
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = tensor_from_numpy(arr, device, bf16=dtype == "bfloat16")
+    return out

@@ -1,0 +1,143 @@
+"""Shared neural layers (counterpart of ``repro.models.layers``): norms,
+RoPE, attention (full / decode / paged decode), the GELU MLP.
+Plain functions over tensors; softmax and norm math in f32, activations in
+the config dtype, as in the reference."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + scale.float())).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings (llama-style half rotation)
+# --------------------------------------------------------------------------
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
+    """positions [...] int -> (sin, cos) each [..., head_dim/2] f32."""
+    half = head_dim // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (ar / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x [B, S, N, dh]; sin/cos [B?, S, dh/2] broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    s = sin[..., None, :]
+    c = cos[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def _promote(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Cast both operands to their promoted dtype (jnp promotes implicitly;
+    torch's products require one dtype)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def full_attention(q, k, v, *, q_offset: int = 0):
+    """Materialized-scores causal attention (S² memory).  q [B,S,H,dh],
+    k/v [B,T,KV,dh].  Products run in the input dtype, as the reference's."""
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = dh**-0.5
+    qg, k = _promote(q.reshape(B, S, KV, G, dh), k)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    qpos = torch.arange(S, device=q.device) + q_offset
+    kpos = torch.arange(T, device=q.device)
+    s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v)
+    return out.reshape(B, S, H, dh)
+
+
+def decode_attention(q, k_cache, v_cache, valid_mask):
+    """q [B,1,H,dh] against a dense cache [B,T,KV,dh]; valid_mask [T] or
+    [B,T] bool.  No kernel here, in the reference either."""
+    B, _, H, dh = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = dh**-0.5
+    qg, k = _promote(q.reshape(B, KV, G, dh), k_cache)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k).float() * scale
+    mask = valid_mask if valid_mask.dim() == 2 else valid_mask[None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v_cache)
+    return out.reshape(B, 1, H, dh)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
+    """Port of the reference's XLA twin of the paged decode kernel: gather
+    each slot's pages into a contiguous per-slot cache, then the dense
+    ``decode_attention`` math.  A length-0 slot gets a uniform softmax over
+    its (null-page) rows here — the kernel and its plain version give exact
+    zeros instead.  Nothing on the serving path calls this; the tests hold
+    it against the reference's twin."""
+    S, H, dh = q.shape
+    KV = k_pages.shape[2]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(S, -1, KV, dh)
+    v = v_pages[bt].reshape(S, -1, KV, dh)
+    valid = torch.arange(k.shape[1], device=q.device)[None, :] < lengths[:, None]
+    return decode_attention(q[:, None], k, v, valid)[:, 0]
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
+    """Paged-KV decode-attention entry point (``core.dispatch``)."""
+    from repro_torch.core import dispatch
+
+    return dispatch.decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths)
+
+
+def attention(q, k, v, *, q_offset=0, chunked_min_seq=8192):
+    """Forward-attention entry point (``core.dispatch``)."""
+    from repro_torch.core import dispatch
+
+    return dispatch.attention_fwd(q, k, v, q_offset=q_offset, chunked_min_seq=chunked_min_seq)
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+
+def weight_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a dense weight (quantized leaves are not ported yet).
+    Left to ``torch.matmul`` as the reference leaves it to XLA's dot."""
+    if x.dtype != w.dtype:
+        x, w = _promote(x, w)
+    return torch.matmul(x, w)
+
+
+def gelu_mlp(x, w_up, w_down):
+    """The classic 2-matrix FFN (OPT style): the ``activation="gelu"``
+    branch of the reference's ``gated_mlp``."""
+    a = F.gelu(weight_matmul(x, w_up).float(), approximate="tanh").to(x.dtype)
+    return weight_matmul(a, w_down)

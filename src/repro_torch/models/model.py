@@ -1,0 +1,63 @@
+"""Unified LM wrapper (counterpart of ``repro.models.model``): one object
+per architecture exposing ``init`` and the serving paths.  Only the
+``dense`` family is ported."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.spec import init_params
+from repro_torch.models.transformer import TransformerLM, torch_dtype
+from repro_torch.utils.device import resolve_device
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, "
+                "'Other model families'); the port serves the dense family"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.impl = TransformerLM(cfg, self.device)
+        self._specs = self.impl.param_specs()
+
+    # ---- parameters -------------------------------------------------------
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg.dtype)
+
+    def init(self, generator: torch.Generator) -> Any:
+        """Random parameters from a CPU ``generator`` (see models/spec.py)."""
+        return init_params(self._specs, generator, self.dtype, self.device)
+
+    # ---- serve ------------------------------------------------------------
+    def prefill(self, params: Any, batch: Any, max_len: int):
+        return self.impl.prefill(params, batch, max_len)
+
+    def decode_step(self, params: Any, cache: Any, tokens: torch.Tensor):
+        return self.impl.decode_step(params, cache, tokens)
+
+    def init_cache(self, batch_size: int, max_len: int):
+        return self.impl.init_cache(batch_size, max_len)
+
+    # ---- paged serving (continuous-batching engine) -----------------------
+    def init_paged_cache(self, n_pages: int, page_size: int):
+        return self.impl.init_paged_cache(n_pages, page_size)
+
+    def prefill_paged(self, params: Any, tokens: torch.Tensor, true_len: int):
+        return self.impl.prefill_paged(params, tokens, true_len)
+
+    def insert_pages(self, cache: Any, k_new, v_new, page_ids):
+        return self.impl.insert_pages(cache, k_new, v_new, page_ids)
+
+    def decode_step_paged(self, params, cache, block_tables, lengths, tokens):
+        return self.impl.decode_step_paged(params, cache, block_tables, lengths, tokens)
+
+
+def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> LM:
+    return LM(cfg, device)

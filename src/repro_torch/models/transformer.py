@@ -1,0 +1,254 @@
+"""Decoder-only transformer LM, dense family (counterpart of
+``repro.models.transformer``).
+
+Parameters keep the reference's stacked layout — one ``[L, ...]`` tensor
+per block leaf — and a plain Python loop over layers takes the place of
+``lax.scan``.  Ported: opt-125m's dense block (no qkv bias, no qk-norm,
+full causal attention, the 2-matrix GELU FFN), the training-style forward,
+dense-cache prefill/decode and the paged serving paths.  The reference's
+other block options, MoE, ``verify_step_paged`` and ``loss_fn`` are not
+ported yet (ROADMAP.md).
+
+The caches are updated in place (the reference returns new arrays): the
+paged pool is the serving engine's largest allocation and a copy per step
+would double its traffic.  Functions still return the cache so callers
+read like the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.spec import PSpec
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+class TransformerLM:
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def param_specs(self) -> dict:
+        c = self.cfg
+        L, D, dh = c.n_layers, c.d_model, c.head_dim
+        H, KV, F, V = c.n_heads, c.n_kv_heads, c.d_ff, c.vocab_size
+        s_attn = 1.0 / math.sqrt(D)
+        s_ff = 1.0 / math.sqrt(max(F, D))
+        blocks: dict[str, PSpec] = {
+            "ln1": PSpec((L, D), ("layers", "embed"), "zeros"),
+            "wq": PSpec((L, D, H * dh), ("layers", "embed", "heads"), scale=s_attn),
+            "wk": PSpec((L, D, KV * dh), ("layers", "embed", "kv_heads"), scale=s_attn),
+            "wv": PSpec((L, D, KV * dh), ("layers", "embed", "kv_heads"), scale=s_attn),
+            "wo": PSpec((L, H * dh, D), ("layers", "heads", "embed"), scale=s_attn),
+            "ln2": PSpec((L, D), ("layers", "embed"), "zeros"),
+            "w_up": PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn),
+            "w_down": PSpec((L, F, D), ("layers", "ff", "embed"), scale=s_ff),
+        }
+        return {
+            "embed": PSpec((V, D), ("vocab", "embed"), scale=1.0),
+            "blocks": blocks,
+            "final_norm": PSpec((D,), ("embed",), "zeros"),
+            "lm_head": PSpec((D, V), ("embed", "vocab"), scale=s_attn),
+        }
+
+    # ------------------------------------------------------------------
+    # block
+    # ------------------------------------------------------------------
+    def _qkv(self, p, x, sin, cos):
+        """Projections and RoPE: x [B, S, D] -> q [B, S, H, dh],
+        k/v [B, S, KV, dh]."""
+        c = self.cfg
+        B, S, _ = x.shape
+        dh, H, KV = c.head_dim, c.n_heads, c.n_kv_heads
+        h = layers.rms_norm(x, p["ln1"], c.norm_eps)
+        q = layers.weight_matmul(h, p["wq"])
+        k = layers.weight_matmul(h, p["wk"])
+        v = layers.weight_matmul(h, p["wv"])
+        q = q.reshape(B, S, H, dh)
+        k = k.reshape(B, S, KV, dh)
+        v = v.reshape(B, S, KV, dh)
+        return layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos), v
+
+    def _attn(self, p, x, sin, cos, q_offset):
+        c = self.cfg
+        B, S, _ = x.shape
+        q, k, v = self._qkv(p, x, sin, cos)
+        o = layers.attention(q, k, v, q_offset=q_offset, chunked_min_seq=c.attn_chunked_min_seq)
+        o = layers.weight_matmul(o.reshape(B, S, -1), p["wo"])
+        return o, (k, v)
+
+    def _ffn(self, p, x):
+        c = self.cfg
+        h = layers.rms_norm(x, p["ln2"], c.norm_eps)
+        return layers.gelu_mlp(h, p["w_up"], p["w_down"])
+
+    def _block(self, p, x, sin, cos, q_offset):
+        o, kv = self._attn(p, x, sin, cos, q_offset)
+        x = x + o
+        x = x + self._ffn(p, x)
+        return x, kv
+
+    @staticmethod
+    def _layer(params, i: int) -> dict:
+        return {name: w[i] for name, w in params["blocks"].items()}
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def hidden_states(self, params, batch, collect_kv: bool = False):
+        """Final-norm hidden states [B, S, D] and, with ``collect_kv``, the
+        per-layer (k, v) stacked as [L, B, S, KV, dh]."""
+        c = self.cfg
+        x = params["embed"][batch["tokens"]]
+        S = x.shape[1]
+        sin, cos = layers.rope_angles(
+            torch.arange(S, device=x.device), c.head_dim, c.rope_theta
+        )
+        sin, cos = sin[None], cos[None]  # [1, S, dh/2]
+        ks, vs = [], []
+        for i in range(c.n_layers):
+            x, (k, v) = self._block(self._layer(params, i), x, sin, cos, 0)
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
+        x = layers.rms_norm(x, params["final_norm"], c.norm_eps)
+        return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+    # ------------------------------------------------------------------
+    # serving: prefill + single-token decode against a dense KV cache
+    # ------------------------------------------------------------------
+    def init_cache(self, batch_size: int, max_len: int):
+        c = self.cfg
+        shape = (c.n_layers, batch_size, max_len, c.n_kv_heads, c.head_dim)
+        dt = torch_dtype(c.decode_cache_dtype)
+        return {
+            "k": torch.zeros(shape, dtype=dt, device=self.device),
+            "v": torch.zeros(shape, dtype=dt, device=self.device),
+            "pos": 0,
+        }
+
+    def prefill(self, params, batch, max_len: int):
+        """Full forward over the prompt; returns last-position logits and a
+        cache of ``max_len`` positions holding the prompt's.  ``pos`` is a
+        host int.  (The reference's ring buffer serves sliding-window
+        configs, which the port does not have yet.)"""
+        x, (k_all, v_all) = self.hidden_states(params, batch, collect_kv=True)
+        S = k_all.shape[2]
+        if S > max_len:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache's {max_len}")
+        cache = self.init_cache(k_all.shape[1], max_len)
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_cache[:, :, :S] = k_all.to(k_cache.dtype)
+        v_cache[:, :, :S] = v_all.to(v_cache.dtype)
+        logits = layers.weight_matmul(x[:, -1, :], params["lm_head"])
+        return logits, {"k": k_cache, "v": v_cache, "pos": S}
+
+    def decode_step(self, params, cache, tokens):
+        """One token for the whole batch: tokens [B] -> logits [B, V]."""
+        c = self.cfg
+        pos = int(cache["pos"])
+        Tc = cache["k"].shape[2]
+        if pos >= Tc:
+            raise ValueError(f"the cache's {Tc} positions are full")
+        B = tokens.shape[0]
+        x = params["embed"][tokens][:, None, :]  # [B, 1, D]
+        sin, cos = layers.rope_angles(
+            torch.tensor([pos], device=x.device), c.head_dim, c.rope_theta
+        )
+        sin, cos = sin[None], cos[None]
+        valid = torch.arange(Tc, device=x.device) <= pos
+        for i in range(c.n_layers):
+            p = self._layer(params, i)
+            k_l, v_l = cache["k"][i], cache["v"][i]
+            q, k, v = self._qkv(p, x, sin, cos)
+            k_l[:, pos] = k[:, 0].to(k_l.dtype)
+            v_l[:, pos] = v[:, 0].to(v_l.dtype)
+            o = layers.decode_attention(q, k_l, v_l, valid)
+            x = x + layers.weight_matmul(o.reshape(B, 1, -1), p["wo"])
+            x = x + self._ffn(p, x)
+        x = layers.rms_norm(x, params["final_norm"], c.norm_eps)
+        logits = layers.weight_matmul(x[:, 0, :], params["lm_head"])
+        return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+    # ------------------------------------------------------------------
+    # paged serving: block-table KV pages for the continuous-batching engine
+    # ------------------------------------------------------------------
+    def init_paged_cache(self, n_pages: int, page_size: int):
+        """Shared KV page pool [L, n_pages, page_size, KV, dh].  Page 0 is
+        reserved as the null page: free slots' decode writes are routed
+        there so a stale block-table row can never corrupt a live page."""
+        c = self.cfg
+        shape = (c.n_layers, n_pages, page_size, c.n_kv_heads, c.head_dim)
+        dt = torch_dtype(c.decode_cache_dtype)
+        return {
+            "k": torch.zeros(shape, dtype=dt, device=self.device),
+            "v": torch.zeros(shape, dtype=dt, device=self.device),
+        }
+
+    def prefill_paged(self, params, tokens, true_len: int):
+        """Prefill one bucket-padded prompt ([1, Sb] int, padding AFTER the
+        prompt) and return the per-layer KV for page insertion.  Logits are
+        taken at position true_len - 1; the pad tail is causally downstream
+        and never read.  Returns (logits [1, V], k_all, v_all [L, Sb, KV, dh])."""
+        x, (k_all, v_all) = self.hidden_states(params, {"tokens": tokens}, collect_kv=True)
+        x_last = x[:, int(true_len) - 1, :]
+        logits = layers.weight_matmul(x_last, params["lm_head"])
+        return logits, k_all[:, 0], v_all[:, 0]
+
+    def insert_pages(self, cache, k_new, v_new, page_ids):
+        """Scatter a prefilled prompt's KV ([L, Sb, KV, dh]) into the pool at
+        the given physical pages ([Sb/page_size] int) — a page-table edit;
+        no existing page moves.  In place."""
+        L, Sb, KV, dh = k_new.shape
+        ps = cache["k"].shape[2]
+        n = Sb // ps
+        dt = cache["k"].dtype
+        cache["k"][:, page_ids] = k_new.reshape(L, n, ps, KV, dh).to(dt)
+        cache["v"][:, page_ids] = v_new.reshape(L, n, ps, KV, dh).to(dt)
+        return cache
+
+    def decode_step_paged(self, params, cache, block_tables, lengths, tokens):
+        """One decode token per slot against the paged KV pool.
+
+        ``tokens/lengths [S] int32`` — length is the count of kv positions
+        already in the slot's pages, i.e. the new token's position; free
+        slots carry length 0 and their write lands on the reserved null
+        page 0, as does any write at or past the slot's page capacity (the
+        reference's capacity-clamped ``writable`` routing).  Every per-slot
+        op is row-independent, which makes a request's token stream bitwise
+        invariant to the other slots.  Returns (logits [S, V], cache)."""
+        c = self.cfg
+        S = tokens.shape[0]
+        ps = cache["k"].shape[2]
+        P = block_tables.shape[1]
+        x = params["embed"][tokens][:, None, :]  # [S, 1, D]
+        sin, cos = layers.rope_angles(lengths[:, None], c.head_dim, c.rope_theta)
+        active = lengths > 0
+        writable = active & (lengths < P * ps)
+        lp = torch.clamp(lengths // ps, 0, P - 1).long()
+        rows = torch.arange(S, device=tokens.device)
+        phys = torch.where(writable, block_tables[rows, lp], 0).long()
+        off = (lengths % ps).long()
+        attn_len = torch.where(active, lengths + 1, 0).to(torch.int32)
+        for i in range(c.n_layers):
+            p = self._layer(params, i)
+            k_l, v_l = cache["k"][i], cache["v"][i]
+            q, k, v = self._qkv(p, x, sin, cos)
+            k_l[phys, off] = k[:, 0].to(k_l.dtype)
+            v_l[phys, off] = v[:, 0].to(v_l.dtype)
+            o = layers.paged_decode_attention(q[:, 0], k_l, v_l, block_tables, attn_len)
+            x = x + layers.weight_matmul(o.reshape(S, 1, -1), p["wo"])
+            x = x + self._ffn(p, x)
+        x = layers.rms_norm(x, params["final_norm"], c.norm_eps)
+        logits = layers.weight_matmul(x[:, 0, :], params["lm_head"])
+        return logits, cache

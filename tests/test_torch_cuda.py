@@ -1,0 +1,162 @@
+"""The port's CUDA kernels and engine on the card: each kernel against its
+plain PyTorch version on the same inputs, and the serving engine through
+the kernels.  Marked ``cuda``; every test skips where no card is present
+(decided in the fixture, never at import time).  Run on a card with
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports JAX, which a card machine
+serving the port need not have.)
+
+Tolerances: f32 outputs within 1e-4 of the plain version (sums in another
+order); bf16 outputs within 2 bf16 ulps (+1e-5) of the plain version
+computed in f32 from the same bf16 inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.launch.serve import Request, ServeEngine
+
+pytestmark = pytest.mark.cuda
+
+F32_ATOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _bf16_ok(got: torch.Tensor, ref_f32: torch.Tensor) -> bool:
+    _, e = torch.frexp(ref_f32.abs())
+    ulp = torch.ldexp(torch.ones_like(ref_f32), e - 8)  # bf16: 8 significant bits
+    return bool(torch.all((got.float() - ref_f32).abs() <= 2 * ulp + 1e-5))
+
+
+def _randn(shape, device, seed, scale=0.5):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(device)
+
+
+FLASH_CASES = [
+    # B, S, T, H, KV, dh, causal, window, q_offset
+    (1, 200, 200, 12, 12, 64, True, 0, 0),
+    (2, 37, 37, 4, 2, 40, True, 0, 0),
+    (1, 24, 88, 6, 2, 128, True, 0, 64),
+    (1, 130, 130, 4, 1, 16, True, 48, 0),
+    (2, 20, 33, 2, 2, 8, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,dh,causal,window,q_offset", FLASH_CASES)
+def test_flash_kernel_vs_plain(cuda, B, S, T, H, KV, dh, causal, window, q_offset):
+    q = _randn((B, S, H, dh), cuda, 1)
+    k = _randn((B, T, KV, dh), cuda, 2)
+    v = _randn((B, T, KV, dh), cuda, 3)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    n = tflash.flash_attention.launches
+    got = tflash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == n + 1
+    want = tflash.flash_attention_plain(q, k, v, **kw)
+    assert (got - want).abs().max().item() <= F32_ATOL
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got_b = tflash.flash_attention(qb, kb, vb, **kw)
+    assert got_b.dtype == torch.bfloat16
+    assert _bf16_ok(got_b, tflash.flash_attention_plain(qb.float(), kb.float(), vb.float(), **kw))
+
+
+def test_flash_kernel_rows_are_independent(cuda):
+    """A batch row's output is bitwise the same alone or next to another."""
+    q, k, v = (_randn((2, 77, 4, 64), cuda, s) for s in (4, 5, 6))
+    both = tflash.flash_attention(q, k, v)
+    solo = tflash.flash_attention(q[1:].contiguous(), k[1:].contiguous(), v[1:].contiguous())
+    assert torch.equal(both[1:], solo)
+
+
+def test_flash_kernel_rejects_wide_heads(cuda):
+    q = torch.zeros((1, 4, 2, 160), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention(q, q, q)
+
+
+def _paged(cuda, S, H, KV, dh, ps, pps, lengths, seed):
+    g = np.random.default_rng(seed)
+    n_pages = S * pps + 1
+    q = _randn((S, H, dh), cuda, seed, 0.3)
+    kp = _randn((n_pages, ps, KV, dh), cuda, seed + 1, 0.3)
+    vp = _randn((n_pages, ps, KV, dh), cuda, seed + 2, 0.3)
+    bt = torch.from_numpy((g.permutation(n_pages - 1) + 1).astype(np.int32).reshape(S, pps))
+    return q, kp, vp, bt.to(cuda), torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+
+PAGED_CASES = [
+    (8, 12, 12, 64, 16, 20, [0, 1, 16, 17, 250, 31, 0, 320]),
+    (3, 8, 2, 40, 8, 3, [5, 24, 9]),
+    (4, 4, 1, 128, 8, 2, [8, 16, 3, 0]),
+    # slots at capacity (P*ps + 1, as decode_step_paged gives a full slot):
+    # the kernel must stop at the slot's P pages, in the middle of the table
+    # and in its last row
+    (4, 8, 4, 64, 8, 3, [25, 7, 0, 25]),
+]
+
+
+@pytest.mark.parametrize("S,H,KV,dh,ps,pps,lengths", PAGED_CASES)
+def test_paged_kernel_vs_plain(cuda, S, H, KV, dh, ps, pps, lengths):
+    args = _paged(cuda, S, H, KV, dh, ps, pps, lengths, seed=S + dh)
+    n = tdec.paged_decode_attention.launches
+    got = tdec.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert tdec.paged_decode_attention.launches == n + 1
+    want = tdec.paged_decode_attention_plain(*args)
+    assert (got - want).abs().max().item() <= F32_ATOL
+    dead = torch.tensor(lengths, device=cuda) == 0
+    assert torch.all(got[dead] == 0)
+    q, kp, vp, bt, lens = args
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    got_b = tdec.paged_decode_attention(qb, kb, vb, bt, lens)
+    want_b = tdec.paged_decode_attention_plain(qb.float(), kb.float(), vb.float(), bt, lens)
+    assert _bf16_ok(got_b, want_b)
+    # f32 queries over a bf16 pool (an f32 model's cache)
+    got_m = tdec.paged_decode_attention(q, kb, vb, bt, lens)
+    want_m = tdec.paged_decode_attention_plain(q, kb, vb, bt, lens)
+    assert (got_m - want_m).abs().max().item() <= F32_ATOL
+    # a slot's output does not depend on the other slots
+    solo = tdec.paged_decode_attention(q[1:2].contiguous(), kp, vp, bt[1:2].contiguous(),
+                                       lens[1:2].contiguous())
+    assert torch.equal(got[1:2], solo)
+
+
+def test_engine_on_card_matches_cpu_and_uses_kernels(cuda):
+    """The smoke engine in f32 on the card: the same greedy streams as on
+    the CPU from the same weights, through both kernels, solo == mixed."""
+    cfg = get_smoke_config("opt-125m")
+    kw = dict(max_concurrent_decodes=3, max_prompt_len=16, max_new_tokens=8, page_size=8)
+    cpu = ServeEngine(cfg, device="cpu", seed=1, **kw)
+    gpu_params = {
+        "embed": cpu.params["embed"].to(cuda),
+        "blocks": {k: w.to(cuda) for k, w in cpu.params["blocks"].items()},
+        "final_norm": cpu.params["final_norm"].to(cuda),
+        "lm_head": cpu.params["lm_head"].to(cuda),
+    }
+    gpu = ServeEngine(cfg, gpu_params, device=cuda, **kw)
+    gpu.warmup()
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=f"r{i}", tokens=rng.integers(2, 256, size=n).astype(np.int32),
+                    max_new=6, arrival=a)
+            for i, (n, a) in enumerate(zip((5, 8, 13, 16, 3), (0, 0, 0, 1, 4)))]
+    nf, nd = tflash.flash_attention.launches, tdec.paged_decode_attention.launches
+    res_gpu, stats = gpu.serve(reqs, step_clock=True)
+    assert tflash.flash_attention.launches - nf == cfg.n_layers * len(reqs)
+    assert tdec.paged_decode_attention.launches - nd == cfg.n_layers * stats["decode_steps"]
+    res_cpu, _ = cpu.serve(reqs, step_clock=True)
+    for r in reqs:
+        np.testing.assert_array_equal(res_gpu[r.id]["tokens"], res_cpu[r.id]["tokens"])
+        solo, _ = gpu.serve([Request(id="s", tokens=r.tokens, max_new=6)], step_clock=True)
+        np.testing.assert_array_equal(solo["s"]["tokens"], res_gpu[r.id]["tokens"])
