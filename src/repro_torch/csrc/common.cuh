@@ -1,5 +1,8 @@
-// Helpers shared by the port's attention kernels: f32 conversion of the
-// two input types and the reference's finite mask constant.
+// Helpers shared by the port's kernels: f32 conversion of the two input
+// types, the reference's finite mask constant, and the TeZO weight-pass tile
+// (the rank-r product and the rounded delta) that tezo_perturb.cu and
+// tezo_adam.cu both run, so that a restore folded into the Adam launch is
+// bitwise the separate perturb launch it replaces.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,5 +37,150 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+
+// --------------------------------------------------------------------------
+// TeZO weight passes
+// --------------------------------------------------------------------------
+
+// A chain of up to kMaxChain rank-r deltas applied in order in one pass:
+// W <- round_W(decay[s] * W + scale[s] * Z_s), Z_s = (u * diag(tau_s)) v^T.
+// Passed to the kernels by value; the host fills it from Python floats.
+constexpr int kMaxChain = 8;
+struct DeltaChain {
+  float scale[kMaxChain];
+  float decay[kMaxChain];
+  int k;
+};
+
+namespace tezo {
+
+// A block owns a kBM x kBN tile of one matrix of the (batched) leaf; thread
+// (tx, ty) owns rows ty*kTM .. +3 and columns tx*4 .. +3 and 64 + tx*4 .. +3.
+// The rank-r sum is staged through shared memory kRC factor columns at a
+// time, as f32 [j][row] and [j][col] so each step is three 16-byte loads.
+constexpr int kBM = 64, kBN = 128, kRC = 32;
+constexpr int kTM = 4, kTN = 8;
+constexpr int kThreads = 256;
+
+struct Tile {
+  int m, n, r, row0, col0;
+};
+
+struct RankSmem {
+  float a[kRC][kBM];
+  float b[kRC][kBN];
+};
+
+__device__ __forceinline__ int tile_row(int a) { return (threadIdx.x / 16) * kTM + a; }
+__device__ __forceinline__ int tile_col(int c) {
+  return (c < 4 ? 0 : 64 - 4) + (threadIdx.x % 16) * 4 + c;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_tile(float (&w)[kTM][kTN], const T* W, const Tile& t) {
+#pragma unroll
+  for (int a = 0; a < kTM; ++a) {
+    const int row = t.row0 + tile_row(a);
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) {
+      const int col = t.col0 + tile_col(c);
+      w[a][c] = (row < t.m && col < t.n)
+                    ? to_f32(W[static_cast<size_t>(row) * t.n + col]) : 0.f;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_tile(T* W, const float (&w)[kTM][kTN], const Tile& t) {
+#pragma unroll
+  for (int a = 0; a < kTM; ++a) {
+    const int row = t.row0 + tile_row(a);
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) {
+      const int col = t.col0 + tile_col(c);
+      if (row < t.m && col < t.n) W[static_cast<size_t>(row) * t.n + col] = from_f32<T>(w[a][c]);
+    }
+  }
+}
+
+// acc[i][l] = sum_j a(i, j) * b(l, j) for j = 0 .. r-1 in ascending order,
+// one f32 fma per term, with a = u * tau (kSquared: (u * u) * tau) and
+// b = v (kSquared: v * v), each factor product rounded as the reference's
+// elementwise products are.  Rows >= m and columns >= n read zeros.
+template <bool kSquared>
+__device__ __forceinline__ void rank_r_product(float (&acc)[kTM][kTN],
+                                               const float* __restrict__ u,
+                                               const float* __restrict__ v,
+                                               const float* __restrict__ tau,
+                                               const Tile& t, RankSmem& sm) {
+#pragma unroll
+  for (int a = 0; a < kTM; ++a)
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) acc[a][c] = 0.f;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int c0 = 0; c0 < t.r; c0 += kRC) {
+    const int jn = min(kRC, t.r - c0);
+    __syncthreads();  // the previous chunk has been read
+    for (int idx = threadIdx.x; idx < kRC * kBM; idx += kThreads) {
+      const int i = idx % kBM, j = idx / kBM, row = t.row0 + i;
+      float x = 0.f;
+      if (j < jn && row < t.m) {
+        const float uu = u[static_cast<size_t>(row) * t.r + c0 + j];
+        x = kSquared ? __fmul_rn(__fmul_rn(uu, uu), tau[c0 + j]) : __fmul_rn(uu, tau[c0 + j]);
+      }
+      sm.a[j][i] = x;
+    }
+    for (int idx = threadIdx.x; idx < kRC * kBN; idx += kThreads) {
+      const int l = idx % kBN, j = idx / kBN, col = t.col0 + l;
+      float y = 0.f;
+      if (j < jn && col < t.n) {
+        const float vv = v[static_cast<size_t>(col) * t.r + c0 + j];
+        y = kSquared ? __fmul_rn(vv, vv) : vv;
+      }
+      sm.b[j][l] = y;
+    }
+    __syncthreads();
+    for (int j = 0; j < jn; ++j) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&sm.a[j][ty * kTM]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&sm.b[j][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&sm.b[j][64 + tx * 4]);
+      const float av[kTM] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int a = 0; a < kTM; ++a)
+#pragma unroll
+        for (int c = 0; c < kTN; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+    }
+  }
+}
+
+// One delta: w <- round_T(d * w + sc * z), each product and the sum rounded
+// on its own (no fma: the reference's f32 accumulate keeps them apart),
+// then widened back to f32 for the next delta.
+template <typename T>
+__device__ __forceinline__ void apply_delta(float (&w)[kTM][kTN], const float (&z)[kTM][kTN],
+                                            float d, float sc) {
+#pragma unroll
+  for (int a = 0; a < kTM; ++a)
+#pragma unroll
+    for (int c = 0; c < kTN; ++c)
+      w[a][c] = to_f32(from_f32<T>(__fadd_rn(__fmul_rn(d, w[a][c]), __fmul_rn(sc, z[a][c]))));
+}
+
+// The chain's deltas in order; taus is [k][r] for this tile's matrix.
+template <typename T>
+__device__ __forceinline__ void delta_chain(float (&w)[kTM][kTN], const float* __restrict__ u,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ taus,
+                                            const DeltaChain& ch, const Tile& t,
+                                            RankSmem& sm) {
+  for (int s = 0; s < ch.k; ++s) {
+    float z[kTM][kTN];
+    rank_r_product<false>(z, u, v, taus + static_cast<size_t>(s) * t.r, t, sm);
+    apply_delta<T>(w, z, ch.decay[s], ch.scale[s]);
+  }
+}
+
+}  // namespace tezo
 
 }  // namespace repro_torch

@@ -30,6 +30,26 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+MAX_CHAIN = 8  # csrc/common.cuh kMaxChain
+
+
+class DeltaChain(ctypes.Structure):
+    """``repro_torch::DeltaChain`` (csrc/common.cuh), passed by value: the
+    scales and decays of up to MAX_CHAIN rank-r deltas."""
+
+    _fields_ = [("scale", _F * MAX_CHAIN), ("decay", _F * MAX_CHAIN), ("k", _I)]
+
+    @classmethod
+    def of(cls, scales, decays) -> "DeltaChain":
+        if len(scales) != len(decays) or len(scales) > MAX_CHAIN:
+            raise ValueError(f"a chain holds at most {MAX_CHAIN} deltas; got "
+                             f"{len(scales)} scales and {len(decays)} decays")
+        ch = cls()
+        ch.k = len(scales)
+        for i, (s, d) in enumerate(zip(scales, decays)):
+            ch.scale[i], ch.decay[i] = float(s), float(d)
+        return ch
+
 # C signatures: name -> argtypes (restype is int, the cudaError_t)
 _SIGNATURES = {
     # q, k, v, out, B, S, T, H, KV, dh, q_offset, window, causal, scale,
@@ -38,6 +58,11 @@ _SIGNATURES = {
     # q, k_pages, v_pages, block_tables, lengths, out, S, H, KV, dh,
     # page_size, pages_per_slot, scale, q dtype, pages dtype, stream
     "paged_decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    # w, out, u, v, tau, chain, B, m, n, r, dtype, stream
+    "tezo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
+    # w, out, u, v, tau_m, tau_v, tau_r, restore chain, -lr, eps, decay,
+    # B, m, n, r, dtype, stream
+    "tezo_adam_update_fwd": [_P] * 7 + [DeltaChain, _F, _F, _F] + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -55,6 +55,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import _build
 from repro_torch.models import build_model
+from repro_torch.utils import jax_random
 
 
 @dataclass
@@ -240,7 +241,7 @@ class ServeEngine:
         self.params = (
             params
             if params is not None
-            else self.model.init(torch.Generator().manual_seed(seed))
+            else self.model.init(jax_random.PRNGKey(seed))
         )
         self.n_slots = max_concurrent_decodes
         self.page_size = page_size
@@ -458,7 +459,7 @@ class BatchedServer:
         self.params = (
             params
             if params is not None
-            else self.model.init(torch.Generator().manual_seed(seed))
+            else self.model.init(jax_random.PRNGKey(seed))
         )
         self.max_len = max_len
 

@@ -7,11 +7,14 @@ patterns, so the bridge is exact and needs neither JAX nor ``ml_dtypes``.
 
 ``load_reference_checkpoint`` reads the reference checkpointer's on-disk
 layout (``arrays.npz`` keyed by leaf path plus ``manifest.json``) with numpy
-alone.
+alone.  Leaf paths are JAX ``keystr`` strings: dict keys (``['blocks']``,
+or ``["['blocks']['wq']"]`` for a key holding quotes) and dataclass
+attributes (``.params``), parsed by :func:`parse_path`.
 """
 
 from __future__ import annotations
 
+import ast
 import json
 import re
 from pathlib import Path
@@ -20,7 +23,25 @@ from typing import Any
 import numpy as np
 import torch
 
-_PATH_KEY = re.compile(r"\['([^']*)'\]")
+_PATH_KEY = re.compile(
+    r"""\.(?P<attr>[A-Za-z_][A-Za-z0-9_]*)"""
+    r"""|\[(?P<key>'(?:[^'\\]|\\.)*'|"(?:[^"\\]|\\.)*")\]"""
+)
+
+
+def parse_path(path: str) -> list[str]:
+    """A ``keystr`` path as its key names, in order: ``.mstate['tau_m']
+    ["['blocks']['wq']"]`` → ``['mstate', 'tau_m', "['blocks']['wq']"]``.
+    Raises on anything else (integer or flattened keys)."""
+    names, pos = [], 0
+    for m in _PATH_KEY.finditer(path):
+        if m.start() != pos:
+            break
+        names.append(m["attr"] if m["attr"] is not None else ast.literal_eval(m["key"]))
+        pos = m.end()
+    if pos != len(path) or not names:
+        raise ValueError(f"unsupported leaf path {path!r}")
+    return names
 
 
 def tensor_from_numpy(
@@ -46,15 +67,14 @@ def load_reference_checkpoint(
     step_dir: str | Path, device: torch.device | str = "cpu"
 ) -> dict:
     """Read one ``step_NNNNNNNN`` directory of the reference checkpointer
-    into a nested dict of tensors keyed as the saved pytree was."""
+    into a nested dict of tensors keyed as the saved pytree was (a
+    dataclass field becomes a dict key of its name)."""
     step_dir = Path(step_dir)
     manifest = json.loads((step_dir / "manifest.json").read_text())
     out: dict = {}
     with np.load(step_dir / "arrays.npz") as arrays:
         for path, (shape, dtype) in manifest["paths"].items():
-            keys = _PATH_KEY.findall(path)
-            if "".join(f"['{k}']" for k in keys) != path:
-                raise ValueError(f"unsupported leaf path {path!r} (dict keys only)")
+            keys = parse_path(path)
             arr = arrays[path].reshape(shape)
             node = out
             for k in keys[:-1]:

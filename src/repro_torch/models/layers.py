@@ -1,5 +1,6 @@
 """Shared neural layers (counterpart of ``repro.models.layers``): norms,
-RoPE, attention (full / decode / paged decode), the GELU MLP.
+RoPE, attention (full / decode / paged decode), the GELU MLP and the
+cross-entropy loss.
 Plain functions over tensors; softmax and norm math in f32, activations in
 the config dtype, as in the reference."""
 
@@ -141,3 +142,21 @@ def gelu_mlp(x, w_up, w_down):
     branch of the reference's ``gated_mlp``."""
     a = F.gelu(weight_matmul(x, w_up).float(), approximate="tanh").to(x.dtype)
     return weight_matmul(a, w_down)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+
+def cross_entropy(logits, targets, mask=None):
+    """Mean token NLL in f32: logsumexp − gold logit, masked mean when a
+    {0,1} ``mask`` [B, S] is given.  logits [B, S, V], targets [B, S]."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets.long()[..., None], dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,6 +1,6 @@
 """Unified LM wrapper (counterpart of ``repro.models.model``): one object
-per architecture exposing ``init`` and the serving paths.  Only the
-``dense`` family is ported."""
+per architecture exposing ``init``, ``loss_fn`` and the serving paths.
+Only the ``dense`` family is ported."""
 
 from __future__ import annotations
 
@@ -31,9 +31,18 @@ class LM:
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.dtype)
 
-    def init(self, generator: torch.Generator) -> Any:
-        """Random parameters from a CPU ``generator`` (see models/spec.py)."""
-        return init_params(self._specs, generator, self.dtype, self.device)
+    def init(self, key) -> Any:
+        """The reference's random parameters for ``key``
+        (``utils.jax_random.PRNGKey(seed)``), drawn on this model's device
+        (see models/spec.py)."""
+        return init_params(self._specs, key, self.dtype, self.device)
+
+    # ---- train ------------------------------------------------------------
+    def loss_fn(self, params: Any, batch: Any) -> torch.Tensor:
+        """Mean next-token cross-entropy (f32 scalar on the device); a
+        forward without autograd, as ZO training never differentiates."""
+        with torch.inference_mode():
+            return self.impl.loss_fn(params, batch)
 
     # ---- serve ------------------------------------------------------------
     def prefill(self, params: Any, batch: Any, max_len: int):

@@ -1,10 +1,11 @@
 """Parameter-spec machinery: models declare shapes + logical axes once and
 ``init_params`` materializes them (counterpart of ``repro.models.spec``).
 
-The draws are normal·scale, zeros or ones as in the reference, but from a
-``torch.Generator`` — they do not reproduce ``jax.random``'s bits.  Tests
-that compare against the reference bridge its weights instead
-(``repro_torch.models.bridge``).
+The draws replay the reference's: a normal leaf is
+``jax.random.normal(fold_in_path(key, path)) * scale`` in f32, cast to the
+leaf dtype (``utils.jax_random``), so one seed gives the reference's
+weights — zeros and ones exactly, normals within 2 f32 ulps before the
+cast.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+
+from repro_torch.utils import jax_random
+from repro_torch.utils.tree import fold_in_path, map_with_path
 
 
 @dataclass(frozen=True)
@@ -31,28 +35,22 @@ class PSpec:
 
 def init_params(
     specs: Any,
-    generator: torch.Generator,
+    key,
     dtype: torch.dtype,
     device: torch.device | str = "cpu",
 ) -> Any:
-    """Materialize a (nested dict) spec tree into parameters.
+    """Materialize a (nested dict) spec tree into parameters on ``device``.
 
-    Leaves are drawn in the tree's insertion order from ``generator`` (a CPU
-    generator: the draw is f32 on the host, then cast and moved), so one
-    seed gives the same weights on every device."""
+    ``key`` is a ``jax_random`` key (``PRNGKey(seed)``); each normal leaf
+    draws from the key folded with its tree path, on ``device``."""
 
-    def make(spec: PSpec) -> torch.Tensor:
+    def make(path: str, spec: PSpec) -> torch.Tensor:
         dt = spec.dtype or dtype
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=device)
-        w = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
-        return (w * spec.scale).to(dtype=dt).to(device)
+        w = jax_random.normal(fold_in_path(key, path), spec.shape, device)
+        return (w * spec.scale).to(dt)
 
-    def walk(node):
-        if isinstance(node, PSpec):
-            return make(node)
-        return {k: walk(v) for k, v in node.items()}
-
-    return walk(specs)
+    return map_with_path(make, specs)

@@ -4,10 +4,10 @@
 Parameters keep the reference's stacked layout — one ``[L, ...]`` tensor
 per block leaf — and a plain Python loop over layers takes the place of
 ``lax.scan``.  Ported: opt-125m's dense block (no qkv bias, no qk-norm,
-full causal attention, the 2-matrix GELU FFN), the training-style forward,
-dense-cache prefill/decode and the paged serving paths.  The reference's
-other block options, MoE, ``verify_step_paged`` and ``loss_fn`` are not
-ported yet (ROADMAP.md).
+full causal attention, the 2-matrix GELU FFN), the training forward and
+its ``loss_fn``, dense-cache prefill/decode and the paged serving paths.
+The reference's other block options, MoE, prefix ``embeds``, chunked
+cross-entropy and ``verify_step_paged`` are not ported yet (ROADMAP.md).
 
 The caches are updated in place (the reference returns new arrays): the
 paged pool is the serving engine's largest allocation and a copy per step
@@ -123,6 +123,13 @@ class TransformerLM:
                 vs.append(v)
         x = layers.rms_norm(x, params["final_norm"], c.norm_eps)
         return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch`` (tokens, targets and
+        an optional mask, each [B, S]) as an f32 scalar on the device."""
+        x, _ = self.hidden_states(params, batch)
+        logits = layers.weight_matmul(x, params["lm_head"])
+        return layers.cross_entropy(logits, batch["targets"], batch.get("mask"))
 
     # ------------------------------------------------------------------
     # serving: prefill + single-token decode against a dense KV cache

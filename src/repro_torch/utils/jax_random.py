@@ -1,0 +1,213 @@
+"""The ``jax.random`` draws the reference makes, replayed in PyTorch.
+
+The reference derives every random number from Threefry-2x32 keys
+(``jax.random.PRNGKey``, ``fold_in``) and draws normals with
+``jax.random.normal``.  The reference runs with
+``jax_threefry_partitionable=True``: element ``i`` of a draw hashes the
+counter pair ``(i >> 32, i & 0xffffffff)`` and its 32 random bits are the
+XOR of the two output words.  An f32 normal is a uniform on
+``[nextafter(-1, 0), 1)`` built from the top 23 bits, mapped through
+``sqrt(2)·erfinv`` with XLA's single-precision Giles polynomial.
+
+A key is a pair of Python ints (two uint32 words).  Keys depend only on
+the seed, the step, the probe and the leaf path, so they are derived on the
+host and never need the device.  Draws run in torch on the device they are
+asked for, in int64 arithmetic masked to 32 bits (torch's uint32 support is
+partial).  The integer parts (keys, bits, uniforms) equal the reference's
+bit for bit.  The normals replay XLA:CPU's own f32 ``log``/``log1p``
+polynomials and the multiply-adds its backend fuses (emulated in f64), so
+they equal the reference's bit for bit on all but about 1 in 10^5
+elements, and are within 2 f32 ulps everywhere.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+# one normal() call draws at most this many elements per int64 pass, which
+# bounds its transient memory (about 10 int64 temporaries per element)
+_CHUNK = 1 << 23
+
+# uniform's range [nextafter(-1, 0), 1) and its f32 width, as XLA forms them
+_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+_SPAN = float(np.float32(1.0) - _LO)
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+# XLA's ErfInv32 coefficients (Giles, "Approximating the erfinv function")
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _rotl(x, d: int):
+    return ((x << d) & MASK) | (x >> (32 - d))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 with 20 rounds.  Works on Python ints and on torch
+    int64 tensors holding values in [0, 2**32)."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for rot in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, rot) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x1, x2
+
+
+def PRNGKey(seed: int) -> tuple[int, int]:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed (x64 off)."""
+    seed = int(seed)
+    if not -(2**31) <= seed < 2**31:
+        raise ValueError(f"seed {seed} is outside int32, as the reference requires")
+    return (0, seed & MASK)
+
+
+def as_key(key) -> tuple[int, int]:
+    """A key as two Python ints, from a pair or a uint32[2] array."""
+    k1, k2 = (int(x) for x in np.asarray(key, dtype=np.uint64).reshape(2))
+    return k1, k2
+
+
+def key_data(key) -> np.ndarray:
+    """The key as the reference stores it: ``uint32[2]``."""
+    return np.asarray(as_key(key), dtype=np.uint32)
+
+
+def fold_in(key, data: int) -> tuple[int, int]:
+    """``jax.random.fold_in``: hash the counter pair (0, data)."""
+    k1, k2 = as_key(key)
+    return threefry2x32(k1, k2, 0, int(data) & MASK)
+
+
+def _bits(k1, k2, start: int, count: int, device) -> torch.Tensor:
+    """32 random bits for flat indices [start, start + count) of a draw,
+    as int64.  ``k1``/``k2`` are ints or int64 tensors of length ``count``
+    (one key per element)."""
+    idx = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    x1, x2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    return x1 ^ x2
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add, as XLA:CPU's backend contracts a multiply
+    into the add that consumes it: the f64 product of two f32 values is
+    exact, so one f64 add and one f32 rounding give the fused result (the
+    two roundings differ from one only on exact f64 ties, which f32 inputs
+    cannot produce here)."""
+    a = a.double() if torch.is_tensor(a) else a
+    b = b.double() if torch.is_tensor(b) else b
+    c = c.double() if torch.is_tensor(c) else c
+    return (a * b + c).float()
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+# XLA's f32 log (Cephes' logf) and log1p (Cephes' rational form below
+# sqrt(2) - 1, log(1 + x) above), with the multiply-adds its CPU backend fuses
+_LOG_P = tuple(_f32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
+_LOG1P_DEN = tuple(_f32(v) for v in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+_LOG1P_NUM = tuple(_f32(v) for v in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 log for x > 0."""
+    bits = torch.clamp_min(x, _f32(1.17549435e-38)).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    below = m < _f32(0.707106781186547524)
+    e = e - below.float()
+    x = (m + -1.0) + torch.where(below, m, 0.0)
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y = _fma(_fma(x, p[0], p[1]), x, p[2])
+    y1 = _fma(_fma(x, p[3], p[4]), x, p[5])
+    y2 = _fma(_fma(x, p[6], p[7]), x, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, e * _LOG_Q1)
+    x = (x - x2 * 0.5) + y
+    return _fma(e, _LOG_Q2, x)
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 log1p for x > -1."""
+    x2 = x * x
+    den = torch.full_like(x, _LOG1P_DEN[0])
+    for c in _LOG1P_DEN[1:]:
+        den = _fma(den, x, c)
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _fma(num, x, c)
+    small = x + _fma(x2, -0.5, (x * x2) * (num / den))
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small, _xla_log(x + 1.0))
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ErfInv (Giles' polynomial, Horner steps fused) for |x| < 1."""
+    w = -_xla_log1p(x * -x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    lo = torch.tensor(_ERFINV_SMALL, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(_ERFINV_LARGE, dtype=torch.float32, device=x.device)
+    p = torch.where(small, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = _fma(p, w, torch.where(small, lo[i], hi[i]))
+    return p * x
+
+
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    u = torch.clamp_min(floats * _SPAN + float(_LO), float(_LO))
+    return erfinv_f32(u) * _SQRT2
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``device``."""
+    k1, k2 = as_key(key)
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for start in range(0, n, _CHUNK):
+        count = min(_CHUNK, n - start)
+        out[start:start + count] = _normal_from_bits(_bits(k1, k2, start, count, device))
+    return out.reshape(shape)
+
+
+def normal_many(keys, sizes, device="cpu") -> torch.Tensor:
+    """Many small draws in one vectorized pass: the concatenation of
+    ``normal(keys[i], (sizes[i],)).ravel()``.  ``keys`` is int64 ``[N, 2]``."""
+    sizes_t = torch.as_tensor(np.asarray(sizes, dtype=np.int64))
+    keys_t = torch.as_tensor(np.asarray(keys, dtype=np.int64).reshape(-1, 2))
+    total = int(sizes_t.sum())
+    if total == 0:
+        return torch.empty(0, dtype=torch.float32, device=device)
+    k1 = torch.repeat_interleave(keys_t[:, 0], sizes_t)
+    k2 = torch.repeat_interleave(keys_t[:, 1], sizes_t)
+    starts = torch.repeat_interleave(torch.cumsum(sizes_t, 0) - sizes_t, sizes_t)
+    idx = torch.arange(total, dtype=torch.int64) - starts
+    x1, x2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    return _normal_from_bits(x1 ^ x2).to(device)

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels and engine on the card: each kernel against its
-plain PyTorch version on the same inputs, and the serving engine through
-the kernels.  Marked ``cuda``; every test skips where no card is present
+"""The port's CUDA kernels, engine and trainer on the card: each kernel
+against its plain PyTorch version on the same inputs, the serving engine
+through the kernels, and the ZO step's chained == unchained contract.  Marked ``cuda``; every test skips where no card is present
 (decided in the fixture, never at import time).  Run on a card with
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -8,18 +8,28 @@ the kernels.  Marked ``cuda``; every test skips where no card is present
 (``--noconftest``: tests/conftest.py imports JAX, which a card machine
 serving the port need not have.)
 
-Tolerances: f32 outputs within 1e-4 of the plain version (sums in another
-order); bf16 outputs within 2 bf16 ulps (+1e-5) of the plain version
-computed in f32 from the same bf16 inputs."""
+Tolerances: attention f32 outputs within 1e-4 of the plain version (sums
+in another order); bf16 outputs within 2 bf16 ulps (+1e-5) of the plain
+version computed in f32 from the same bf16 inputs.  The weight-pass
+kernels: f32 within 1e-5 of the plain version (the rank-r sums in another
+order), bf16 within 1 bf16 ulp of the plain version on the same bf16
+weights, the ulp taken at the larger of the results and the input weight."""
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.estimator import ZOConfig
+from repro_torch.core.zo_step import build_zo_train_step, init_zo_state
+from repro_torch.data import DataConfig, batch_at_step
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import tezo_adam as tadam
+from repro_torch.kernels import tezo_perturb as tpert
 from repro_torch.launch.serve import Request, ServeEngine
+from repro_torch.models import build_model
+from repro_torch.utils.jax_random import PRNGKey
 
 pytestmark = pytest.mark.cuda
 
@@ -160,3 +170,107 @@ def test_engine_on_card_matches_cpu_and_uses_kernels(cuda):
         np.testing.assert_array_equal(res_gpu[r.id]["tokens"], res_cpu[r.id]["tokens"])
         solo, _ = gpu.serve([Request(id="s", tokens=r.tokens, max_new=6)], step_clock=True)
         np.testing.assert_array_equal(solo["s"]["tokens"], res_gpu[r.id]["tokens"])
+
+
+# --------------------------------------------------------------------------
+# the weight-pass kernels and the ZO step
+# --------------------------------------------------------------------------
+
+
+def _within_bf16_ulp(got: torch.Tensor, want: torch.Tensor, w_in: torch.Tensor) -> bool:
+    """1 bf16 ulp at the larger of the results and the input weight (an
+    update that cancels W to ~0 keeps the absolute rounding of its inputs)."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(torch.maximum(got.abs(), want.abs()), w_in.float().abs())
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    return bool(torch.all((got - want).abs() <= ulp))
+
+
+TEZO_CASES = [  # W shape, r
+    ((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12), ((24, 32), 1), ((130, 257), 128),
+]
+
+
+@pytest.mark.parametrize("shape,r", TEZO_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tezo_kernels_vs_plain(cuda, shape, r, dtype):
+    *batch, m, n = shape
+    w = _randn(shape, cuda, 1, 0.1).to(dtype)
+    u, v = _randn((*batch, m, r), cuda, 2, 1.0), _randn((*batch, n, r), cuda, 3, 1.0)
+    taus = _randn((*batch, 3, r), cuda, 4, 1.0)
+    tm, tv = _randn((*batch, r), cuda, 5, 0.3), _randn((*batch, r), cuda, 6, 0.3) ** 2
+    scales = [1e-3, -2e-3, 1e-3]
+
+    def close(got, want):
+        if dtype == torch.float32:
+            return (got - want).abs().max().item() <= 1e-5
+        return _within_bf16_ulp(got, want, w)
+
+    for k in (1, 2, 3):
+        n0 = tpert.tezo_perturb.launches
+        got = tpert.tezo_perturb(w.clone(), u, v, taus[..., :k, :].contiguous(), scales[:k],
+                                 decay=0.99)
+        torch.cuda.synchronize()
+        assert tpert.tezo_perturb.launches == n0 + 1
+        want = tpert.tezo_perturb_plain(w.clone(), u, v, taus[..., :k, :], scales[:k],
+                                        decay=0.99)
+        assert close(got, want), k
+    for tau_r in (None, taus[..., :1, :].contiguous()):
+        rs = [] if tau_r is None else [1e-3]
+        n0 = tadam.tezo_adam_update.launches
+        got = tadam.tezo_adam_update(w.clone(), u, v, tm, tv, 1e-3, 1e-5, tau_r=tau_r,
+                                     restore_scale=rs)
+        torch.cuda.synchronize()
+        assert tadam.tezo_adam_update.launches == n0 + 1
+        want = tadam.tezo_adam_update_plain(w.clone(), u, v, tm, tv, 1e-3, 1e-5,
+                                            tau_r=tau_r, restore_scale=rs)
+        assert close(got, want)
+    # the restore folded into the Adam launch is bitwise the perturb launch
+    # followed by the Adam launch; out= leaves W untouched
+    fused = tadam.tezo_adam_update(w.clone(), u, v, tm, tv, 1e-3, 1e-5,
+                                   tau_r=taus[..., :1, :].contiguous(), restore_scale=[1e-3])
+    two = tadam.tezo_adam_update(
+        tpert.tezo_perturb(w.clone(), u, v, taus[..., :1, :].contiguous(), [1e-3]),
+        u, v, tm, tv, 1e-3, 1e-5)
+    assert torch.equal(fused, two)
+    chain = taus[..., :2, :].contiguous()  # a two-delta restore chain
+    fused2 = tadam.tezo_adam_update(w.clone(), u, v, tm, tv, 1e-3, 1e-5, tau_r=chain,
+                                    restore_scale=[1e-3, -2e-3])
+    three = tadam.tezo_adam_update(tpert.tezo_perturb(w.clone(), u, v, chain, [1e-3, -2e-3]),
+                                   u, v, tm, tv, 1e-3, 1e-5)
+    assert torch.equal(fused2, three)
+    out = torch.empty_like(w)
+    before = w.clone()
+    tpert.tezo_perturb(w, u, v, taus[..., :2, :].contiguous(), scales[:2], out=out)
+    assert torch.equal(w, before)
+
+
+def _card_run(cuda, method, q, mode, dtype, steps=3):
+    model = build_model(get_smoke_config("opt-125m").reduced(dtype=dtype), cuda)
+    zc = ZOConfig(method=method, q_probes=q, restore_mode=mode, rank=8, lr=1e-2)
+    state = init_zo_state(model.init(PRNGKey(0)), zc)
+    step = build_zo_train_step(model.loss_fn, zc)
+    data = DataConfig(seq_len=32, global_batch=4, vocab_size=256)
+    for s in range(steps):
+        batch = {k: torch.from_numpy(x).to(cuda) for k, x in batch_at_step(data, s).items()}
+        state, _ = step(state, batch)
+    return state
+
+
+@pytest.mark.parametrize("method", ["tezo", "tezo_m", "tezo_adam"])
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chained_equals_unchained_on_card(cuda, method, q, dtype):
+    n0 = tpert.tezo_perturb.launches
+    a = _card_run(cuda, method, q, "inplace", dtype)
+    assert tpert.tezo_perturb.launches > n0
+    b = _card_run(cuda, method, q, "unchained", dtype)
+    for name, w in a.params["blocks"].items():
+        assert torch.equal(w, b.params["blocks"][name]), name
+    for name in ("embed", "lm_head", "final_norm"):
+        assert torch.equal(a.params[name], b.params[name]), name
+    for key, tree in a.mstate.items():
+        if key != "factors":
+            for path, t in tree.items():
+                assert torch.equal(t, b.mstate[key][path]), (key, path)

@@ -30,6 +30,7 @@ from repro.models import build_model as ref_build_model
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import build_model
 from repro_torch.models.bridge import load_reference_checkpoint, params_from_numpy
+from repro_torch.utils.jax_random import PRNGKey
 
 from _torch_ref import numpy_params, to_jax
 
@@ -117,8 +118,9 @@ def test_reference_checkpoint_reads_bit_exact(tmp_path):
 
 def test_init_matches_reference_specs(model, ref_model):
     """The port's own init draws the reference's tree: same leaves, shapes
-    and dtypes (the values differ — different generators)."""
-    ported = model.init(torch.Generator().manual_seed(0))
+    and dtypes (the values themselves are held against the reference's in
+    tests/test_torch_random.py)."""
+    ported = model.init(PRNGKey(0))
     want = {k: (v.shape, str(v.dtype)) for k, v in _leaves(ref_model.abstract_params())}
     got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch.")) for k, v in
            _leaves(ported)}
@@ -223,13 +225,19 @@ def test_config_registry():
 
 def test_entry_points_default_to_cuda():
     """Without a card, asking for the default device raises; the CPU runs
-    only when asked for."""
+    only when asked for.  The same holds for the training entry point."""
+    from repro_torch.launch import train
+
     if torch.cuda.is_available():
         assert build_model(get_smoke_config("opt-125m")).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(get_smoke_config("opt-125m"))
     assert build_model(get_smoke_config("opt-125m"), device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train(smoke=True, steps=1, verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "1"])
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -237,6 +245,11 @@ def test_port_imports_no_jax_and_no_reference():
         "import json, sys\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.core.dispatch\n"
         "import repro_torch.models.bridge, repro_torch.kernels._build\n"
+        "import repro_torch.launch.train, repro_torch.core.zo_step\n"
+        "import repro_torch.core.estimator, repro_torch.core.cpd\n"
+        "import repro_torch.kernels.tezo_perturb, repro_torch.kernels.tezo_adam\n"
+        "import repro_torch.checkpoint.checkpointer, repro_torch.data.pipeline\n"
+        "import repro_torch.utils.jax_random, repro_torch.utils.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'repro'))\n"
         "print(json.dumps(bad))\n"
