@@ -11,22 +11,24 @@ the flash kernel.
 
 ZO leaf ops.  A TeZO-family low-rank leaf takes ``kernels.tezo_perturb``
 (perturb, bridge, chain, the SGD update) or ``kernels.tezo_adam`` (the Adam
-update); both write the leaf in place unless ``out`` names another buffer
-(the ``exact`` restore mode).  Every chained op replays the rounding of the
-separate passes it merges, so chained and unchained schedules agree bit for
-bit.  Dense leaves (norm scales, biases: what ``cpd.is_lowrank_leaf``
-rejects) take the reference's jnp branch in plain PyTorch on either device;
-on the TeZO path no dense leaf is eligible for the reference's noise
-kernels, whose port waits in ROADMAP.md Queue B.  Where the reference draws
-a dense leaf's z from its key inside the op, these ops take the step's
-pre-drawn z (``core.estimator.StepNoise``).
+update).  Every other leaf takes the dense-noise ops: a leaf the noise
+kernels cover (:func:`noise_kernel_eligible`, the reference's rule) draws
+its z from the counter stream of ``(key_t, path)`` on
+``kernels.zo_noise.noise_perturb`` / ``noise_update``; any other (a norm
+scale of one dim, a stack of fewer than 8 rows) takes the reference's jnp
+branch in plain PyTorch on either device, over the ``jax.random`` z the step
+drew on the host (``core.estimator.StepNoise``).  All of them write the
+leaf in place unless ``out`` names another buffer (the ``exact`` restore
+mode), and every chained op replays the rounding of the separate passes it
+merges, so chained and unchained schedules agree bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.cpd import CPDFactor
+from repro_torch.core.cpd import CPDFactor, is_lowrank_leaf
+from repro_torch.kernels import zo_noise
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.tezo_adam import tezo_adam_update
@@ -83,32 +85,22 @@ def kappa_fold(kappas: torch.Tensor, terms, *, square: bool = False) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
-def perturb_leaf(w, factor: CPDFactor, tau, scale, *, out=None):
-    """W + scale·(u·diag(τ))·vᵀ for one low-rank leaf; τ is [..., r]."""
-    return tezo_perturb(w, factor.u, factor.v, tau.unsqueeze(-2), [scale], out=out)
-
-
-def perturb_pair_leaf(w, factor: CPDFactor, tau_a, tau_b, scale_a, scale_b, *, out=None):
-    """The bridge: scale_a·recon(τ_a) then scale_b·recon(τ_b) in one pass,
-    bitwise two ``perturb_leaf`` passes."""
-    taus = torch.stack([tau_a, tau_b], dim=-2)
-    return tezo_perturb(w, factor.u, factor.v, taus, [scale_a, scale_b], out=out)
-
-
 def perturb_chain_leaf(w, factor: CPDFactor, taus, scales, *, out=None):
-    """scalesᵢ·recon(τᵢ) in chain order, in one pass."""
+    """scalesᵢ·recon(τᵢ) in chain order, in one pass for one low-rank leaf:
+    the perturb (one delta), the bridge (two) or a longer chain, bitwise
+    the single-delta passes."""
     return tezo_perturb(w, factor.u, factor.v, torch.stack(list(taus), dim=-2),
                         list(scales), out=out)
 
 
-def _restore_chain(restore_tau, restore_scale):
-    """(τ list, scale list) of a restore operand: a list/tuple is a chain,
-    anything else one delta."""
-    if restore_tau is None:
+def _restore_chain(restore, restore_scale):
+    """(operand list, scale list) of a restore (τ vectors or probe ids): a
+    list/tuple is a chain, anything else one delta."""
+    if restore is None:
         return [], []
-    if isinstance(restore_tau, (list, tuple)):
-        return list(restore_tau), list(restore_scale)
-    return [restore_tau], [restore_scale]
+    if isinstance(restore, (list, tuple)):
+        return list(restore), list(restore_scale)
+    return [restore], [restore_scale]
 
 
 def sgd_update_leaf(w, factor: CPDFactor, ktau, lr, *, decay=None, restore_tau=None,
@@ -131,8 +123,17 @@ def adam_update_leaf(w, factor: CPDFactor, tau_m, tau_v, lr, eps, *, decay=None,
 
 
 # ---------------------------------------------------------------------------
-# dense-noise leaf ops (the reference's jnp branch; z pre-drawn per probe)
+# dense-noise leaf ops (MeZO family + every method's dense-fallback leaves)
 # ---------------------------------------------------------------------------
+
+
+def noise_kernel_eligible(w) -> bool:
+    """Can this leaf's dense N(0, 1) perturbation run on the noise kernels?
+    Two trailing matrix dims >= 8 (``cpd.is_lowrank_leaf``) and rows below
+    2^24 (the row shares a counter word with the probe id), as the
+    reference decides, so a leaf's noise stream is the same for every pass
+    and every method."""
+    return is_lowrank_leaf("", w) and w.shape[-2] < zo_noise.MAX_ROWS
 
 
 def _write(res, w, out):
@@ -140,28 +141,24 @@ def _write(res, w, out):
     return out.copy_(res)
 
 
-def noise_perturb_leaf(w, z, scale, *, out=None):
-    """W + scale·z for one dense leaf; z in the leaf dtype."""
-    return _write(add_scaled(w, z, scale), w, out)
+def _dense_chain(w, probes, scales, dense_z):
+    """scalesᵢ·z_pᵢ over pre-drawn z, one ``add_scaled`` rounding each."""
+    for p, s in zip(probes, scales):
+        w = add_scaled(w, dense_z(p), s)
+    return w
 
 
-def noise_perturb_pair_leaf(w, z_a, scale_a, z_b, scale_b, *, out=None):
-    """Restore probe a and perturb probe b: two ``add_scaled`` deltas."""
-    return _write(add_scaled(add_scaled(w, z_a, scale_a), z_b, scale_b), w, out)
-
-
-def noise_perturb_chain_leaf(w, zs, scales, *, out=None):
-    res = w
-    for z, s in zip(zs, scales):
-        res = add_scaled(res, z, s)
-    return _write(res, w, out)
-
-
-def _noise_restored(w, restore_z, restore_scale):
-    res = w
-    for z, s in zip(*_restore_chain(restore_z, restore_scale)):
-        res = add_scaled(res, z, s)
-    return res
+def noise_perturb_chain_leaf(w, key_t, path, probes, scales, dense_z, *, out=None):
+    """scalesᵢ·z_pᵢ in chain order for one leaf, in one pass: the perturb
+    (one probe), the bridge (restore probe i, perturb probe i+1) or a
+    longer chain.  An eligible leaf draws z from the counter stream of
+    ``(key_t, path)`` on the noise kernel; any other adds the step's
+    pre-drawn ``jax.random`` z, ``dense_z(probe)``, as the reference's jnp
+    branch does."""
+    if noise_kernel_eligible(w):
+        return zo_noise.noise_perturb(w, zo_noise.leaf_seed(key_t, path), probes, scales,
+                                      out=out)
+    return _write(_dense_chain(w, probes, scales, dense_z), w, out)
 
 
 def _decayed(w, decay):
@@ -169,31 +166,46 @@ def _decayed(w, decay):
     return wf if decay is None else wf * decay
 
 
-def noise_sgd_update_leaf(w, zs, kappas, lr, *, decay=None, restore_z=None,
-                          restore_scale=0.0, out=None):
-    """W ← decay·W − lr·mean_i κ_i z_i for one dense leaf; ``zs`` holds every
-    probe's z, ``restore_z`` the chained restore's."""
-    res = _noise_restored(w, restore_z, restore_scale)
-    g = kappa_fold(kappas, [z.float() for z in zs])
-    return _write((_decayed(res, decay) - lr * g).to(w.dtype), w, out)
-
-
-def noise_momentum_update_leaf(w, m_buf, zs, kappas, lr, beta1, *, decay=None,
-                               restore_z=None, restore_scale=0.0, out=None):
-    """Dense momentum step: M ← β₁M + (1−β₁)g; W ← decay·W − lr·M.
-    Returns (w', m')."""
-    res = _noise_restored(w, restore_z, restore_scale)
-    g = kappa_fold(kappas, [z.float() for z in zs])
+def _noise_update(variant, w, m_buf, v_buf, key_t, path, kappas, lr, beta1, beta2, eps,
+                  dense_z, decay, restore_probe, restore_scale):
+    """One leaf's update: the noise kernel (W, M and V in place) on an
+    eligible leaf, else the reference's jnp branch over pre-drawn z (new
+    tensors).  Returns ``(w,)``, ``(w, m)`` or ``(w, m, v)``."""
+    probes, scales = _restore_chain(restore_probe, restore_scale)
+    if noise_kernel_eligible(w):
+        return zo_noise.noise_update(
+            w, zo_noise.leaf_seed(key_t, path), kappas, variant, lr, beta1, beta2, eps,
+            decay=decay, m_buf=m_buf, v_buf=v_buf, restore_probes=probes,
+            restore_scales=scales)
+    res = _dense_chain(w, probes, scales, dense_z)
+    g = kappa_fold(kappas, [dense_z(i).float() for i in range(kappas.shape[0])])
+    if variant == "sgd":
+        return (_write((_decayed(res, decay) - lr * g).to(w.dtype), w, None),)
     m_new = beta1 * m_buf + (1.0 - beta1) * g
-    return _write((_decayed(res, decay) - lr * m_new).to(w.dtype), w, out), m_new
-
-
-def noise_adam_update_leaf(w, m_buf, v_buf, zs, kappas, lr, beta1, beta2, eps, *,
-                           decay=None, restore_z=None, restore_scale=0.0, out=None):
-    """Dense Adam step; returns (w', m', v')."""
-    res = _noise_restored(w, restore_z, restore_scale)
-    g = kappa_fold(kappas, [z.float() for z in zs])
-    m_new = beta1 * m_buf + (1.0 - beta1) * g
+    if variant == "momentum":
+        return _write((_decayed(res, decay) - lr * m_new).to(w.dtype), w, None), m_new
     v_new = beta2 * v_buf + (1.0 - beta2) * g * g
     upd = m_new * torch.rsqrt(v_new + eps)
-    return _write((_decayed(res, decay) - lr * upd).to(w.dtype), w, out), m_new, v_new
+    return _write((_decayed(res, decay) - lr * upd).to(w.dtype), w, None), m_new, v_new
+
+
+def noise_sgd_update_leaf(w, key_t, path, kappas, lr, dense_z, *, decay=None,
+                          restore_probe=None, restore_scale=0.0):
+    """W ← decay·W − lr·mean_i κ_i z_i for one leaf, the chained restore
+    deltas first in the same pass."""
+    return _noise_update("sgd", w, None, None, key_t, path, kappas, lr, 0.0, 0.0, 0.0,
+                         dense_z, decay, restore_probe, restore_scale)[0]
+
+
+def noise_momentum_update_leaf(w, m_buf, key_t, path, kappas, lr, beta1, dense_z, *,
+                               decay=None, restore_probe=None, restore_scale=0.0):
+    """M ← β₁M + (1−β₁)g; W ← decay·W − lr·M.  Returns (w', m')."""
+    return _noise_update("momentum", w, m_buf, None, key_t, path, kappas, lr, beta1, 0.0, 0.0,
+                         dense_z, decay, restore_probe, restore_scale)
+
+
+def noise_adam_update_leaf(w, m_buf, v_buf, key_t, path, kappas, lr, beta1, beta2, eps,
+                           dense_z, *, decay=None, restore_probe=None, restore_scale=0.0):
+    """Dense Adam step; returns (w', m', v')."""
+    return _noise_update("adam", w, m_buf, v_buf, key_t, path, kappas, lr, beta1, beta2, eps,
+                         dense_z, decay, restore_probe, restore_scale)

@@ -1,30 +1,36 @@
-"""ZO methods: perturbation semantics and τ-space optimizer updates
-(counterpart of ``repro.core.estimator``; the TeZO family).
+"""ZO methods: perturbation semantics and optimizer updates (counterpart
+of ``repro.core.estimator``; the TeZO and MeZO families).
 
   tezo        G = κ·Σ_s τ_s (u_s∘v_s)                          [Alg. 1 L11]
   tezo_m      τ_M ← β₁τ_M + (1−β₁)κτ ;  G = recon(τ_M)          [L12-13]
   tezo_adam   + τ_V ← β₂τ_V + (1−β₂)κ²τ² ;  G = M/√(V+ε)        [L14-18]
+  mezo        G = mean_i κ_i z_i, z ~ N(0, I) dense per leaf   (Malladi et al.)
+  mezo_m      M ← β₁M + (1−β₁)G  (f32 per leaf)
+  mezo_adam   + V ← β₂V + (1−β₂)G² ;  W ← W − lr·M/√(V+ε)
 
 A method implements the transitions of ``core.zo_step``'s chained step:
 ``perturb`` (first perturb and flip), ``perturb_pair`` (the bridge),
 ``perturb_chain`` and ``update`` with an optional folded restore.  The leaf
-math is ``core.dispatch``'s; the methods own the τ-space state.
+math is ``core.dispatch``'s; the methods own the optimizer state.
 
 Random draws.  Every τ and dense z a step needs is a pure function of
-(step key, probe, leaf path), so :meth:`TeZO.draws` makes all of them on
-the host at the start of the step (``utils.jax_random``, one vectorized
-pass) and sends them to the device in one pinned, non-blocking copy
-(:class:`StepNoise`).  No transition draws anything itself and nothing is
-read back, so a step never waits on the device.  The probe-mean folds run
-on the device over the flat concatenation of every low-rank leaf's τ
-(elementwise, so the same bits as per-leaf folds).
+(step key, probe, leaf path).  A leaf the noise kernels cover draws its z
+on the device from its key alone (``kernels.zo_noise``), inside each pass;
+everything else — every τ and the z of the few leaves the kernels do not
+cover — :meth:`ZOMethod.draws` makes on the host at the start of the step
+(``utils.jax_random``, one vectorized pass) and sends to the device in one
+pinned, non-blocking copy (:class:`StepNoise`).  Keys are host ints and
+nothing is read back, so a step never waits on the device.  TeZO's
+probe-mean folds run on the device over the flat concatenation of every
+low-rank leaf's τ (elementwise, so the same bits as per-leaf folds).
 
-The MeZO, LOZO and SubZO families are not ported yet (ROADMAP.md Queue A
-items 9-10); :func:`get_method` raises for them.
+The LOZO and SubZO families are not ported yet (ROADMAP.md Queue A item
+10); :func:`get_method` raises for them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -98,6 +104,7 @@ class StepNoise:
 
     def __init__(self, factors: dict, dense: dict, key_t, q: int, device):
         self.q = q
+        self.key_t = key_t
         self._tau_meta, t_off = [], 0  # (path, offset, shape)
         for path in sorted(factors):
             f = factors[path]
@@ -153,6 +160,11 @@ class StepNoise:
     def z(self, path: str, probe: int) -> torch.Tensor:
         return self._z[path, probe]
 
+    def dense_z(self, path: str):
+        """``probe -> z`` of one leaf drawn on the host (what the dense
+        leaf ops take for a leaf the noise kernels do not cover)."""
+        return functools.partial(self.z, path)
+
     def split(self, flat: torch.Tensor) -> dict:
         """A flat [T] vector back into per-leaf views keyed by path."""
         return {path: flat[off:off + math.prod(shape)].view(shape)
@@ -171,36 +183,67 @@ def _restore_tau(noise: StepNoise, path, restore_probe):
     return None if restore_probe is None else noise.tau(path, restore_probe)
 
 
-def _restore_z(noise: StepNoise, path, restore_probe):
-    return None if restore_probe is None else noise.z(path, restore_probe)
-
-
 class ZOMethod:
     """Base class; all run state lives in the ``mstate`` dict.  ``out`` (a
     {path: tensor} dict or None) names where each transition writes: None
-    updates the params in place."""
+    updates the params in place.
+
+    The base class routes the three perturb transitions leaf by leaf: a
+    leaf with a CPD factor (:meth:`factors`) takes the TeZO kernels, any
+    other the dense-noise ops (the noise kernels where the leaf is
+    eligible, else the step's pre-drawn z)."""
 
     name: str = "base"
 
     def init(self, params, key, cfg: ZOConfig, ranks: Optional[dict] = None) -> dict:
         raise NotImplementedError
 
-    def draws(self, params, mstate, key_t, cfg: ZOConfig) -> StepNoise:
-        raise NotImplementedError
-
-    def perturb(self, params, mstate, noise, probe, scale, cfg, out=None):
-        raise NotImplementedError
-
-    def perturb_pair(self, params, mstate, noise, probe_a, scale_a, probe_b, scale_b,
-                     cfg, out=None):
-        raise NotImplementedError
-
-    def perturb_chain(self, params, mstate, noise, probes, scales, cfg, out=None):
-        raise NotImplementedError
-
     def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
                restore_scale=0.0):
         raise NotImplementedError
+
+    def factors(self, mstate) -> dict:
+        """{path: CPDFactor} of the leaves perturbed in τ-space."""
+        return {}
+
+    def draws(self, params, mstate, key_t, cfg: ZOConfig) -> StepNoise:
+        """The step's τ for every factor leaf and host z for every leaf that
+        has no factor and does not fit the noise kernels; an eligible leaf
+        needs nothing but its key."""
+        factors = self.factors(mstate)
+        dense = {}
+
+        def visit(path, w):
+            if path not in factors and not dispatch.noise_kernel_eligible(w):
+                dense[path] = w
+            return w
+
+        map_with_path(visit, params)
+        device = flatten_with_path(params)[0][1].device
+        return StepNoise(factors, dense, key_t, cfg.q_probes, device)
+
+    def perturb_chain(self, params, mstate, noise, probes, scales, cfg, out=None):
+        """scalesᵢ·Z_pᵢ in chain order, one pass per leaf."""
+        factors = self.factors(mstate)
+        probes, scales = tuple(probes), tuple(scales)
+
+        def f(path, w):
+            if path in factors:
+                return dispatch.perturb_chain_leaf(w, factors[path], noise.taus(path, probes),
+                                                   scales, out=_out(out, path))
+            return dispatch.noise_perturb_chain_leaf(
+                w, noise.key_t, path, probes, scales, noise.dense_z(path), out=_out(out, path))
+
+        return map_with_path(f, params)
+
+    def perturb(self, params, mstate, noise, probe, scale, cfg, out=None):
+        return self.perturb_chain(params, mstate, noise, [probe], [scale], cfg, out=out)
+
+    def perturb_pair(self, params, mstate, noise, probe_a, scale_a, probe_b, scale_b,
+                     cfg, out=None):
+        """The bridge: restore probe a and perturb probe b in one pass."""
+        return self.perturb_chain(params, mstate, noise, [probe_a, probe_b],
+                                  [scale_a, scale_b], cfg, out=out)
 
 
 # --------------------------------------------------------------------------
@@ -217,58 +260,8 @@ class TeZO(ZOMethod):
         return {"factors": init_factors(params, jax_random.fold_in(key, 1),
                                         default_rank=cfg.rank, ranks=ranks)}
 
-    def draws(self, params, mstate, key_t, cfg):
-        factors = mstate["factors"]
-        dense = {}
-
-        def visit(path, w):
-            if path not in factors:
-                dense[path] = w
-            return w
-
-        map_with_path(visit, params)
-        device = flatten_with_path(params)[0][1].device
-        return StepNoise(factors, dense, key_t, cfg.q_probes, device)
-
-    def perturb(self, params, mstate, noise, probe, scale, cfg, out=None):
-        factors = mstate["factors"]
-
-        def f(path, w):
-            if path in factors:
-                return dispatch.perturb_leaf(w, factors[path], noise.tau(path, probe), scale,
-                                             out=_out(out, path))
-            return dispatch.noise_perturb_leaf(w, noise.z(path, probe), scale,
-                                               out=_out(out, path))
-
-        return map_with_path(f, params)
-
-    def perturb_pair(self, params, mstate, noise, probe_a, scale_a, probe_b, scale_b,
-                     cfg, out=None):
-        factors = mstate["factors"]
-
-        def f(path, w):
-            if path in factors:
-                return dispatch.perturb_pair_leaf(
-                    w, factors[path], noise.tau(path, probe_a), noise.tau(path, probe_b),
-                    scale_a, scale_b, out=_out(out, path))
-            return dispatch.noise_perturb_pair_leaf(
-                w, noise.z(path, probe_a), scale_a, noise.z(path, probe_b), scale_b,
-                out=_out(out, path))
-
-        return map_with_path(f, params)
-
-    def perturb_chain(self, params, mstate, noise, probes, scales, cfg, out=None):
-        factors = mstate["factors"]
-        probes, scales = tuple(probes), tuple(scales)
-
-        def f(path, w):
-            if path in factors:
-                return dispatch.perturb_chain_leaf(w, factors[path], noise.taus(path, probes),
-                                                   scales, out=_out(out, path))
-            return dispatch.noise_perturb_chain_leaf(
-                w, [noise.z(path, p) for p in probes], scales, out=_out(out, path))
-
-        return map_with_path(f, params)
+    def factors(self, mstate):
+        return mstate["factors"]
 
     @staticmethod
     def _ktau(noise: StepNoise, kappas, square=False) -> torch.Tensor:
@@ -289,10 +282,9 @@ class TeZO(ZOMethod):
                     w, factors[path], ktau[path], lr, decay=decay,
                     restore_tau=_restore_tau(noise, path, restore_probe),
                     restore_scale=restore_scale)
-            zs = [noise.z(path, i) for i in range(noise.q)]
             return dispatch.noise_sgd_update_leaf(
-                w, zs, kappas, lr, decay=decay,
-                restore_z=_restore_z(noise, path, restore_probe), restore_scale=restore_scale)
+                w, noise.key_t, path, kappas, lr, noise.dense_z(path), decay=decay,
+                restore_probe=restore_probe, restore_scale=restore_scale)
 
         return map_with_path(f, params), mstate
 
@@ -336,10 +328,10 @@ class TeZOMomentum(TeZO):
                     w, factors[path], new_tau_m[path], lr, decay=decay,
                     restore_tau=_restore_tau(noise, path, restore_probe),
                     restore_scale=restore_scale)
-            zs = [noise.z(path, i) for i in range(noise.q)]
             w, new_dense_m[path] = dispatch.noise_momentum_update_leaf(
-                w, mstate["dense_m"][path], zs, kappas, lr, cfg.beta1, decay=decay,
-                restore_z=_restore_z(noise, path, restore_probe), restore_scale=restore_scale)
+                w, mstate["dense_m"][path], noise.key_t, path, kappas, lr, cfg.beta1,
+                noise.dense_z(path), decay=decay, restore_probe=restore_probe,
+                restore_scale=restore_scale)
             return w
 
         params = map_with_path(f, params)
@@ -374,11 +366,10 @@ class TeZOAdam(TeZOMomentum):
                     w, factors[path], new_tau_m[path], new_tau_v[path], lr, cfg.eps,
                     decay=decay, restore_tau=_restore_tau(noise, path, restore_probe),
                     restore_scale=restore_scale)
-            zs = [noise.z(path, i) for i in range(noise.q)]
             w, new_dense_m[path], new_dense_v[path] = dispatch.noise_adam_update_leaf(
-                w, mstate["dense_m"][path], mstate["dense_v"][path], zs, kappas, lr,
-                cfg.beta1, cfg.beta2, cfg.eps, decay=decay,
-                restore_z=_restore_z(noise, path, restore_probe), restore_scale=restore_scale)
+                w, mstate["dense_m"][path], mstate["dense_v"][path], noise.key_t, path, kappas,
+                lr, cfg.beta1, cfg.beta2, cfg.eps, noise.dense_z(path), decay=decay,
+                restore_probe=restore_probe, restore_scale=restore_scale)
             return w
 
         params = map_with_path(f, params)
@@ -386,11 +377,87 @@ class TeZOAdam(TeZOMomentum):
                         "dense_m": new_dense_m, "dense_v": new_dense_v}
 
 
-METHODS: dict[str, ZOMethod] = {m.name: m for m in [TeZO(), TeZOMomentum(), TeZOAdam()]}
+# --------------------------------------------------------------------------
+# MeZO family (Malladi et al., 2023): the dense baselines
+# --------------------------------------------------------------------------
 
-NOT_PORTED = {
-    "mezo": 9, "mezo_m": 9, "mezo_adam": 9, "lozo": 10, "lozo_m": 10, "subzo": 10,
-}
+
+class MeZO(ZOMethod):
+    """MeZO: every leaf perturbed with a dense N(0, I) z, ZO-SGD on it."""
+
+    name = "mezo"
+
+    def init(self, params, key, cfg, ranks=None):
+        return {}
+
+    def _moments(self, params) -> dict:
+        return {path: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                for path, w in flatten_with_path(params)}
+
+    def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
+               restore_scale=0.0):
+        decay = _decay_factor(lr, cfg)
+
+        def f(path, w):
+            return dispatch.noise_sgd_update_leaf(
+                w, noise.key_t, path, kappas, lr, noise.dense_z(path), decay=decay,
+                restore_probe=restore_probe, restore_scale=restore_scale)
+
+        return map_with_path(f, params), mstate
+
+
+class MeZOMomentum(MeZO):
+    """MeZO-m: an f32 momentum buffer per leaf."""
+
+    name = "mezo_m"
+
+    def init(self, params, key, cfg, ranks=None):
+        return {"m": self._moments(params)}
+
+    def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
+               restore_scale=0.0):
+        decay = _decay_factor(lr, cfg)
+        new_m = dict(mstate["m"])
+
+        def f(path, w):
+            w, new_m[path] = dispatch.noise_momentum_update_leaf(
+                w, mstate["m"][path], noise.key_t, path, kappas, lr, cfg.beta1,
+                noise.dense_z(path), decay=decay, restore_probe=restore_probe,
+                restore_scale=restore_scale)
+            return w
+
+        params = map_with_path(f, params)
+        return params, {"m": new_m}
+
+
+class MeZOAdam(MeZO):
+    """MeZO-Adam: dense f32 first and second moments per leaf."""
+
+    name = "mezo_adam"
+
+    def init(self, params, key, cfg, ranks=None):
+        return {"m": self._moments(params), "v": self._moments(params)}
+
+    def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
+               restore_scale=0.0):
+        decay = _decay_factor(lr, cfg)
+        new_m, new_v = dict(mstate["m"]), dict(mstate["v"])
+
+        def f(path, w):
+            w, new_m[path], new_v[path] = dispatch.noise_adam_update_leaf(
+                w, mstate["m"][path], mstate["v"][path], noise.key_t, path, kappas, lr,
+                cfg.beta1, cfg.beta2, cfg.eps, noise.dense_z(path), decay=decay,
+                restore_probe=restore_probe, restore_scale=restore_scale)
+            return w
+
+        params = map_with_path(f, params)
+        return params, {"m": new_m, "v": new_v}
+
+
+METHODS: dict[str, ZOMethod] = {m.name: m for m in [
+    TeZO(), TeZOMomentum(), TeZOAdam(), MeZO(), MeZOMomentum(), MeZOAdam()]}
+
+NOT_PORTED = {"lozo": 10, "lozo_m": 10, "subzo": 10}
 
 
 def get_method(name: str) -> ZOMethod:

@@ -14,7 +14,7 @@ into a second set of buffers (2× weight memory).
 
 The step updates the params in place on the device: the kernels write W
 where it lies.  It returns the new state (the same param tensors, the new
-τ-space state, step + 1) and device-side metrics; nothing in it reads a
+optimizer state, step + 1) and device-side metrics; nothing in it reads a
 value back to the host, so consecutive steps queue on the device without a
 sync.  The probe-parallel schedule is not ported (ROADMAP.md Queue A
 item 13).

@@ -30,7 +30,9 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 MAX_CHAIN = 8  # csrc/common.cuh kMaxChain
+MAX_LEAD = 4  # csrc/zo_noise.cuh kMaxLead
 
 
 class DeltaChain(ctypes.Structure):
@@ -50,6 +52,46 @@ class DeltaChain(ctypes.Structure):
             ch.scale[i], ch.decay[i] = float(s), float(d)
         return ch
 
+
+class NoiseChain(ctypes.Structure):
+    """``repro_torch::noise::NoiseChain`` (csrc/zo_noise.cuh), by value."""
+
+    _fields_ = [("scale", _F * MAX_CHAIN), ("probe", _I * MAX_CHAIN), ("k", _I)]
+
+    @classmethod
+    def of(cls, chain) -> "NoiseChain":
+        if len(chain) > MAX_CHAIN:
+            raise ValueError(f"a chain holds at most {MAX_CHAIN} deltas; got {len(chain)}")
+        ch = cls()
+        ch.k = len(chain)
+        for i, (p, s) in enumerate(chain):
+            ch.probe[i], ch.scale[i] = p, s
+        return ch
+
+
+class LeadDims(ctypes.Structure):
+    """``repro_torch::noise::LeadDims``: a leaf's leading dims, by value."""
+
+    _fields_ = [("dim", _I * MAX_LEAD), ("n", _I)]
+
+    @classmethod
+    def of(cls, dims) -> "LeadDims":
+        if len(dims) > MAX_LEAD:
+            raise ValueError(f"a leaf has at most {MAX_LEAD} leading dims; got {len(dims)}")
+        ld = cls()
+        ld.n = len(dims)
+        for i, d in enumerate(dims):
+            ld.dim[i] = d
+        return ld
+
+
+class NoiseHyp(ctypes.Structure):
+    """``repro_torch::NoiseHyp`` (csrc/noise_update.cu), by value; its
+    fields read back as the f32 values the kernel gets."""
+
+    _fields_ = [(name, _F) for name in ("lr", "b1", "omb1", "b2", "omb2", "eps", "decay", "inv_q")]
+
+
 # C signatures: name -> argtypes (restype is int, the cudaError_t)
 _SIGNATURES = {
     # q, k, v, out, B, S, T, H, KV, dh, q_offset, window, causal, scale,
@@ -63,6 +105,12 @@ _SIGNATURES = {
     # w, out, u, v, tau_m, tau_v, tau_r, restore chain, -lr, eps, decay,
     # B, m, n, r, dtype, stream
     "tezo_adam_update_fwd": [_P] * 7 + [DeltaChain, _F, _F, _F] + [_I] * 5 + [_P],
+    # w, out, k0, k1, chain, lead dims, B, m, n, dtype, stream
+    "noise_perturb_fwd": [_P, _P, _U, _U, NoiseChain, LeadDims] + [_I] * 4 + [_P],
+    # w, m, v, kappas, q, k0, k1, restore chain, hyp, lead dims, variant, B,
+    # m, n, dtype, stream
+    "noise_update_fwd": [_P] * 4 + [_I, _U, _U, NoiseChain, NoiseHyp, LeadDims] + [_I] * 5
+    + [_P],
 }
 
 _lock = threading.Lock()

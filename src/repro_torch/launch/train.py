@@ -3,13 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch opt-125m --method tezo_adam --steps 300        # on the card
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch opt-125m --method mezo_adam                    # the MeZO baseline
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
 Build the model, draw the reference's initial params and ZO state from
 ``--seed``, then loop: prefetched batch → pinned non-blocking copy → one ZO
 step (the weight passes on the ``tezo_perturb`` / ``tezo_adam_update``
-kernels, the forwards on the flash-attention kernel), with the losses left
-on the device and read once per log boundary.  On the card, every step
+kernels for the TeZO family and on ``noise_perturb`` / ``noise_update``
+for the MeZO family, the forwards on the flash-attention kernel), with the
+losses left on the device and read once per log boundary.  On the card, every step
 after the first runs under ``torch.cuda.set_sync_debug_mode("error")``: a
 step that waited on the device would raise.  Prints the reference's JSON
 result (``final_eval_loss`` and the rest) without the history.
@@ -17,7 +20,7 @@ result (``final_eval_loss`` and the rest) without the history.
 Options whose modules are not ported raise and name their ROADMAP.md item:
 ``--mesh``, ``--probe-parallel``, ``--ensemble``, ``--adaptive-q``,
 ``--weight-quant``, ``--rank-mode spectral``, ``--pretrain-steps`` and
-methods outside the TeZO family.
+the LOZO and SubZO methods.
 """
 
 from __future__ import annotations
@@ -230,8 +233,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="opt-125m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--method", default="tezo_adam",
-                    help="tezo, tezo_m or tezo_adam (the other families are not "
-                    "ported yet)")
+                    help="tezo, tezo_m, tezo_adam, mezo, mezo_m or mezo_adam (lozo, "
+                    "lozo_m and subzo are not ported yet)")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)

@@ -4,8 +4,7 @@
 The draws replay the reference's: a normal leaf is
 ``jax.random.normal(fold_in_path(key, path)) * scale`` in f32, cast to the
 leaf dtype (``utils.jax_random``), so one seed gives the reference's
-weights — zeros and ones exactly, normals within 2 f32 ulps before the
-cast.
+weights bit for bit.
 """
 
 from __future__ import annotations

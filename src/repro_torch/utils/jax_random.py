@@ -15,9 +15,10 @@ host and never need the device.  Draws run in torch on the device they are
 asked for, in int64 arithmetic masked to 32 bits (torch's uint32 support is
 partial).  The integer parts (keys, bits, uniforms) equal the reference's
 bit for bit.  The normals replay XLA:CPU's own f32 ``log``/``log1p``
-polynomials and the multiply-adds its backend fuses (emulated in f64), so
-they equal the reference's bit for bit on all but about 1 in 10^5
-elements, and are within 2 f32 ulps everywhere.
+polynomials and the multiply-adds its backend fuses (emulated in f64), and
+take the correctly rounded square root XLA takes (torch's own f32 ``sqrt``
+on the CPU is an ulp off on about 1 in 140 inputs), so they equal the
+reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -51,16 +52,35 @@ def _rotl(x, d: int):
 
 def threefry2x32(k1, k2, x1, x2):
     """Threefry-2x32 with 20 rounds.  Works on Python ints and on torch
-    int64 tensors holding values in [0, 2**32)."""
+    int64 tensors holding values in [0, 2**32); tensors are worked in
+    place on fresh copies (broadcast to one shape), one temporary in all."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & MASK
     x2 = (x2 + ks[1]) & MASK
+    if torch.is_tensor(x1) or torch.is_tensor(x2):
+        device = (x1 if torch.is_tensor(x1) else x2).device
+        x1, x2 = (t.contiguous() for t in torch.broadcast_tensors(
+            torch.as_tensor(x1, device=device), torch.as_tensor(x2, device=device)))
+        tmp = torch.empty_like(x2)
+
+        def add(a, b):
+            return a.add_(b).bitwise_and_(MASK)
+
+        def rotl_xor(a, d, b):
+            torch.bitwise_left_shift(a, d, out=tmp).bitwise_and_(MASK)
+            return a.bitwise_right_shift_(32 - d).bitwise_or_(tmp).bitwise_xor_(b)
+    else:
+        def add(a, b):
+            return (a + b) & MASK
+
+        def rotl_xor(a, d, b):
+            return _rotl(a, d) ^ b
     for i in range(5):
         for rot in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & MASK
-            x2 = _rotl(x2, rot) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & MASK
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
+            x1 = add(x1, x2)
+            x2 = rotl_xor(x2, rot, x1)
+        x1 = add(x1, ks[(i + 1) % 3])
+        x2 = add(x2, ks[(i + 2) % 3] + (i + 1))
     return x1, x2
 
 
@@ -165,11 +185,18 @@ def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _f32(0.41421356237309504880), small, _xla_log(x + 1.0))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's, formed in f64 (a
+    double square root rounds once more to f32 without a double-rounding
+    error)."""
+    return torch.sqrt(x.double()).float()
+
+
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's f32 ErfInv (Giles' polynomial, Horner steps fused) for |x| < 1."""
     w = -_xla_log1p(x * -x)
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(small, w - 2.5, sqrt_rn(w) - 3.0)
     lo = torch.tensor(_ERFINV_SMALL, dtype=torch.float32, device=x.device)
     hi = torch.tensor(_ERFINV_LARGE, dtype=torch.float32, device=x.device)
     p = torch.where(small, lo[0], hi[0])

@@ -13,7 +13,12 @@ in another order); bf16 outputs within 2 bf16 ulps (+1e-5) of the plain
 version computed in f32 from the same bf16 inputs.  The weight-pass
 kernels: f32 within 1e-5 of the plain version (the rank-r sums in another
 order), bf16 within 1 bf16 ulp of the plain version on the same bf16
-weights, the ulp taken at the larger of the results and the input weight."""
+weights, the ulp taken at the larger of the results and the input weight.
+The noise kernels do the plain version's arithmetic op for op, so z, the
+perturbed W and the moments are bitwise the plain version's; only the Adam
+step's rsqrt (the kernel's correctly rounded one, the plain version's
+formed in f64 and rounded once) may put W an ulp apart, so W after an
+Adam update is held to 1 f32 / bf16 ulp."""
 
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import tezo_adam as tadam
 from repro_torch.kernels import tezo_perturb as tpert
+from repro_torch.kernels import zo_noise as tnoise
 from repro_torch.launch.serve import Request, ServeEngine
 from repro_torch.models import build_model
 from repro_torch.utils.jax_random import PRNGKey
@@ -246,6 +252,88 @@ def test_tezo_kernels_vs_plain(cuda, shape, r, dtype):
     assert torch.equal(w, before)
 
 
+NOISE_SHAPES = [(50, 40), (3, 24, 137), (2, 2, 16, 36), (12, 768)]
+
+
+def _ulp_close(got: torch.Tensor, want: torch.Tensor, w_in: torch.Tensor) -> bool:
+    if got.dtype == torch.bfloat16:
+        return _within_bf16_ulp(got, want, w_in)
+    return bool(torch.all((got - want).abs() <= torch.finfo(torch.float32).eps
+                          * torch.maximum(got.abs(), want.abs())))
+
+
+@pytest.mark.parametrize("shape", NOISE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_kernels_vs_plain(cuda, shape, dtype):
+    seed = tnoise.leaf_seed(PRNGKey(3), "['blocks']['wq']")
+    z = tnoise.noise_perturb(torch.zeros(shape, device=cuda), seed, [2], [1.0])
+    assert torch.equal(z, tnoise.noise_perturb_plain(torch.zeros(shape, device=cuda), seed,
+                                                     [2], [1.0]))
+    w = _randn(shape, cuda, 1, 0.1).to(dtype)
+    probes, scales = [0, 1, 2], [1e-3, -2e-3, 1e-3]
+    for k in (1, 2, 3):
+        n0 = tnoise.noise_perturb.launches
+        got = tnoise.noise_perturb(w.clone(), seed, probes[:k], scales[:k])
+        torch.cuda.synchronize()
+        assert tnoise.noise_perturb.launches == n0 + 1
+        assert torch.equal(got, tnoise.noise_perturb_plain(w.clone(), seed, probes[:k],
+                                                           scales[:k])), k
+    kap = torch.tensor([0.7, -1.3, 0.4], device=cuda)
+    m0, v0 = _randn(shape, cuda, 2, 0.01), _randn(shape, cuda, 3, 0.1) ** 2
+    for variant in tnoise.VARIANTS:
+        # the kernel reuses the last restore probe's draw when g takes that
+        # probe too; the last two cases restore a chain that ends inside and
+        # outside g's probes
+        for q, rp, decay in ((1, [], None), (1, [0], 0.99), (3, [], 0.99), (3, [2], 0.99),
+                             (2, [3, 0], None), (3, [1, 4], 0.99)):
+            outs = []
+            for fn in (tnoise.noise_update, tnoise.noise_update_plain):
+                outs.append(fn(w.clone(), seed, kap[:q], variant, 1e-3, 0.9, 0.99, 1e-5,
+                               decay=decay, m_buf=m0.clone(), v_buf=v0.clone(),
+                               restore_probes=rp, restore_scales=[1e-3] * len(rp)))
+            got, want = outs
+            what = (variant, q)
+            assert len(got) == len(want), what
+            if variant == "adam":
+                assert _ulp_close(got[0], want[0], w), what
+            else:
+                assert torch.equal(got[0], want[0]), what
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a, b), what
+    # moments not 16-byte aligned move column by column, as a ragged row does
+    shifted = [torch.empty(t.numel() + 1, device=cuda)[1:].view(shape).copy_(t) for t in (m0, v0)]
+    got = tnoise.noise_update(w.clone(), seed, kap[:1], "adam", 1e-3, 0.9, 0.99, 1e-5,
+                              m_buf=shifted[0], v_buf=shifted[1], restore_probes=[0],
+                              restore_scales=[1e-3])
+    want = tnoise.noise_update_plain(w.clone(), seed, kap[:1], "adam", 1e-3, 0.9, 0.99, 1e-5,
+                                     m_buf=m0.clone(), v_buf=v0.clone(), restore_probes=[0],
+                                     restore_scales=[1e-3])
+    assert _ulp_close(got[0], want[0], w) and all(torch.equal(a, b)
+                                                  for a, b in zip(got[1:], want[1:]))
+    # restore-into-update is bitwise a perturb launch then an update launch
+    fused = tnoise.noise_update(w.clone(), seed, kap[:2], "adam", 1e-3, 0.9, 0.99, 1e-5,
+                                m_buf=m0.clone(), v_buf=v0.clone(), restore_probes=[1],
+                                restore_scales=[1e-3])
+    two = tnoise.noise_update(tnoise.noise_perturb(w.clone(), seed, [1], [1e-3]), seed,
+                              kap[:2], "adam", 1e-3, 0.9, 0.99, 1e-5, m_buf=m0.clone(),
+                              v_buf=v0.clone())
+    assert all(torch.equal(a, b) for a, b in zip(fused, two))
+    out = torch.empty_like(w)
+    before = w.clone()
+    tnoise.noise_perturb(w, seed, [0, 1], scales[:2], out=out)
+    assert torch.equal(w, before) and not torch.equal(out, before)
+
+
+def test_noise_kernels_reject_bad_operands(cuda):
+    seed = (1, 2)
+    w = torch.zeros(16, 16, device=cuda)
+    with pytest.raises(ValueError):
+        tnoise.noise_perturb(w.t(), seed, [0], [1.0])  # not contiguous
+    with pytest.raises(ValueError):
+        tnoise.noise_update(w, seed, torch.ones(1), "adam", 1e-3,
+                            m_buf=torch.zeros(16, 16, device=cuda))
+
+
 def _card_run(cuda, method, q, mode, dtype, steps=3):
     model = build_model(get_smoke_config("opt-125m").reduced(dtype=dtype), cuda)
     zc = ZOConfig(method=method, q_probes=q, restore_mode=mode, rank=8, lr=1e-2)
@@ -258,13 +346,15 @@ def _card_run(cuda, method, q, mode, dtype, steps=3):
     return state
 
 
-@pytest.mark.parametrize("method", ["tezo", "tezo_m", "tezo_adam"])
+@pytest.mark.parametrize("method", ["tezo", "tezo_m", "tezo_adam", "mezo", "mezo_m",
+                                    "mezo_adam"])
 @pytest.mark.parametrize("q", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chained_equals_unchained_on_card(cuda, method, q, dtype):
-    n0 = tpert.tezo_perturb.launches
+    kernel = tnoise.noise_perturb if method.startswith("mezo") else tpert.tezo_perturb
+    n0 = kernel.launches
     a = _card_run(cuda, method, q, "inplace", dtype)
-    assert tpert.tezo_perturb.launches > n0
+    assert kernel.launches > n0
     b = _card_run(cuda, method, q, "unchained", dtype)
     for name, w in a.params["blocks"].items():
         assert torch.equal(w, b.params["blocks"][name]), name
@@ -274,3 +364,28 @@ def test_chained_equals_unchained_on_card(cuda, method, q, dtype):
         if key != "factors":
             for path, t in tree.items():
                 assert torch.equal(t, b.mstate[key][path]), (key, path)
+
+
+def test_mezo_adam_card_matches_cpu(cuda):
+    """Three f32 MeZO-Adam steps on the card (the noise kernels) and on the
+    CPU (their plain versions) from the same seed."""
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        n0 = tnoise.noise_update.launches
+        model = build_model(get_smoke_config("opt-125m"), dev)
+        zc = ZOConfig(method="mezo_adam", lr=1e-3)
+        state = init_zo_state(model.init(PRNGKey(0)), zc)
+        step = build_zo_train_step(model.loss_fn, zc)
+        losses = []
+        for s in range(3):
+            batch = {k: torch.from_numpy(x).to(dev) for k, x in
+                     batch_at_step(DataConfig(seq_len=32, global_batch=4, vocab_size=256),
+                                   s).items()}
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        runs[dev.type] = (state, losses, tnoise.noise_update.launches - n0)
+    (g, lg, ng), (c, lc, nc) = runs["cuda"], runs["cpu"]
+    assert ng == 3 * 8 and nc == 0  # the smoke model's 8 eligible leaves
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for name, w in g.params["blocks"].items():
+        assert (w.cpu() - c.params["blocks"][name]).abs().max().item() <= 1e-5, name

@@ -354,7 +354,8 @@ def test_pass_count_and_methods():
     with pytest.raises(ValueError):
         zo_pass_count(1, "lazy")
     assert get_method("tezo_adam").name == "tezo_adam"
-    for name in ("mezo", "mezo_adam", "lozo", "subzo"):
+    assert get_method("mezo_adam").name == "mezo_adam"
+    for name in ("lozo", "lozo_m", "subzo"):
         with pytest.raises(KeyError, match="ROADMAP.md Queue A"):
             get_method(name)
 
@@ -473,7 +474,7 @@ def test_lr_schedule_matches_reference(sched):
 @pytest.mark.parametrize("kw", [
     dict(mesh="host:2,1"), dict(probe_parallel=True), dict(ensemble=2),
     dict(adaptive_q=True), dict(weight_quant="lut4"), dict(rank_mode="spectral"),
-    dict(pretrain_steps=5), dict(method="mezo"), dict(method="subzo"),
+    dict(pretrain_steps=5), dict(method="lozo"), dict(method="subzo"),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises((NotImplementedError, KeyError), match="ROADMAP.md Queue A"):
