@@ -11,7 +11,10 @@ the flash kernel.
 
 ZO leaf ops.  A TeZO-family low-rank leaf takes ``kernels.tezo_perturb``
 (perturb, bridge, chain, the SGD update) or ``kernels.tezo_adam`` (the Adam
-update).  Every other leaf takes the dense-noise ops: a leaf the noise
+update); a LOZO low-rank leaf takes ``kernels.tezo_perturb`` with τ ≡ 1
+through ``lozo_chain_k``, and a SubZO one ``kernels.subzo_perturb``, for
+every pass including the update (its restore chained before it).  Every
+other leaf takes the dense-noise ops: a leaf the noise
 kernels cover (:func:`noise_kernel_eligible`, the reference's rule) draws
 its z from the counter stream of ``(key_t, path)`` on
 ``kernels.zo_noise.noise_perturb`` / ``noise_update``; any other (a norm
@@ -32,7 +35,8 @@ from repro_torch.kernels import zo_noise
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.tezo_adam import tezo_adam_update
-from repro_torch.kernels.tezo_perturb import add_scaled, tezo_perturb
+from repro_torch.kernels.subzo_perturb import subzo_perturb
+from repro_torch.kernels.tezo_perturb import add_scaled, lozo_chain_k, tezo_perturb
 
 
 def attention_fwd(
@@ -120,6 +124,30 @@ def adam_update_leaf(w, factor: CPDFactor, tau_m, tau_v, lr, eps, *, decay=None,
     tau_r = torch.stack(taus, dim=-2) if taus else None
     return tezo_adam_update(w, factor.u, factor.v, tau_m, tau_v, lr, eps, decay=decay,
                             tau_r=tau_r, restore_scale=scales, out=out)
+
+
+# ---------------------------------------------------------------------------
+# LOZO / SubZO update ops (the window's factors on the leaf's device; their
+# perturb chains call lozo_chain_k and subzo_perturb from the estimator)
+# ---------------------------------------------------------------------------
+
+
+def lozo_update_leaf(w, u, kv, lr, *, decay=None, restore_v=None, restore_scale=0.0,
+                     out=None):
+    """W ← decay·W − lr·U·kvᵀ, ``kv`` the probe mean κ·V (or LOZO-m's
+    momentum), with the chained restore deltas first in the same pass and
+    the decay on the update delta only."""
+    vs, scales = _restore_chain(restore_v, restore_scale)
+    return lozo_chain_k(w, u, vs + [kv], scales + [-float(lr)], decay=decay, out=out)
+
+
+def subzo_update_leaf(w, u, v, sbar, lr, *, decay=None, restore_sigma=None,
+                      restore_scale=0.0, out=None):
+    """W ← decay·W − lr·U·Σ̄·Vᵀ, Σ̄ the probe mean κ·Σ, with the chained
+    restore deltas first in the same pass and the decay on the last."""
+    sigmas, scales = _restore_chain(restore_sigma, restore_scale)
+    return subzo_perturb(w, u, v, torch.stack(sigmas + [sbar], dim=-3),
+                         scales + [-float(lr)], decay=decay, out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ of ``repro.core.zo_step``).
 of the separate passes it merges, so the chained step equals the literal
 ``3q + 1`` schedule (``restore_mode="unchained"``) bit for bit.
 ``restore_mode="exact"`` branches the ±ρ copies off the original params
-into a second set of buffers (2× weight memory).
+into a second set of buffers (2× weight memory).  Before the step's draws,
+``method.begin_step`` applies the lazy refreshes at a window boundary
+(LOZO-m's momentum reset, SubZO's new subspace).
 
 The step updates the params in place on the device: the kernels write W
 where it lies.  It returns the new state (the same param tensors, the new
@@ -91,6 +93,7 @@ def build_zo_train_step(
             "probe_parallel is not ported yet (ROADMAP.md Queue A item 13)"
         )
     scratch: dict = {}  # the exact mode's copies, reused across steps
+    cache: dict = {}  # what the method reuses across steps (LOZO's window of U)
 
     def branch(params):
         if not scratch:
@@ -100,10 +103,11 @@ def build_zo_train_step(
     def step_fn(state: ZOTrainState, batch: Any) -> tuple[ZOTrainState, dict]:
         with torch.inference_mode():
             key_t = jax_random.fold_in(state.base_key, state.step)
-            noise = method.draws(state.params, state.mstate, key_t, cfg)
+            mstate = method.begin_step(state.mstate, key_t, state.step, cfg)
+            noise = method.draws(state.params, mstate, key_t, cfg, state.step, cache)
             lr = float(cfg.schedule(state.step))
             rho = cfg.rho
-            params, mstate = state.params, state.mstate
+            params = state.params
             p = params
             kappas, f_plus_acc, f_minus_acc = [], 0.0, 0.0
             for probe in range(cfg.q_probes):

@@ -1,8 +1,8 @@
 // Helpers shared by the port's kernels: f32 conversion of the two input
-// types, the reference's finite mask constant, and the TeZO weight-pass tile
-// (the rank-r product and the rounded delta) that tezo_perturb.cu and
-// tezo_adam.cu both run, so that a restore folded into the Adam launch is
-// bitwise the separate perturb launch it replaces.
+// types, the reference's finite mask constant, and the low-rank weight-pass
+// tile (the rank-r product and the rounded delta) that tezo_perturb.cu,
+// tezo_adam.cu and subzo_perturb.cu all run, so that a restore folded into
+// the Adam launch is bitwise the separate perturb launch it replaces.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -103,16 +103,18 @@ __device__ __forceinline__ void store_tile(T* W, const float (&w)[kTM][kTN], con
   }
 }
 
-// acc[i][l] = sum_j a(i, j) * b(l, j) for j = 0 .. r-1 in ascending order,
-// one f32 fma per term, with a = u * tau (kSquared: (u * u) * tau) and
-// b = v (kSquared: v * v), each factor product rounded as the reference's
-// elementwise products are.  Rows >= m and columns >= n read zeros.
-template <bool kSquared>
-__device__ __forceinline__ void rank_r_product(float (&acc)[kTM][kTN],
-                                               const float* __restrict__ u,
-                                               const float* __restrict__ v,
-                                               const float* __restrict__ tau,
-                                               const Tile& t, RankSmem& sm) {
+// acc[i][l] = sum_j a(row_i, j) * b(l, j) for j = 0 .. r-1 in ascending
+// order, one f32 fma per term, with b = v (kSquaredB: v * v) and a given by
+// the loader ``ALoad::a(u, aux, row, c0, j, r)`` for rank column c0 + j:
+// TeZO's u * tau (TauA<false>, aux = tau), its squared form (TauA<true>) or
+// SubZO's row of U * Sigma (subzo_perturb.cu, aux = Sigma in shared
+// memory).  Rows >= m and columns >= n read zeros.
+template <bool kSquaredB, typename ALoad>
+__device__ __forceinline__ void rank_product(float (&acc)[kTM][kTN],
+                                             const float* __restrict__ u,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ aux,
+                                             const Tile& t, RankSmem& sm) {
 #pragma unroll
   for (int a = 0; a < kTM; ++a)
 #pragma unroll
@@ -124,10 +126,7 @@ __device__ __forceinline__ void rank_r_product(float (&acc)[kTM][kTN],
     for (int idx = threadIdx.x; idx < kRC * kBM; idx += kThreads) {
       const int i = idx % kBM, j = idx / kBM, row = t.row0 + i;
       float x = 0.f;
-      if (j < jn && row < t.m) {
-        const float uu = u[static_cast<size_t>(row) * t.r + c0 + j];
-        x = kSquared ? __fmul_rn(__fmul_rn(uu, uu), tau[c0 + j]) : __fmul_rn(uu, tau[c0 + j]);
-      }
+      if (j < jn && row < t.m) x = ALoad::a(u, aux, row, c0, j, t.r);
       sm.a[j][i] = x;
     }
     for (int idx = threadIdx.x; idx < kRC * kBN; idx += kThreads) {
@@ -135,7 +134,7 @@ __device__ __forceinline__ void rank_r_product(float (&acc)[kTM][kTN],
       float y = 0.f;
       if (j < jn && col < t.n) {
         const float vv = v[static_cast<size_t>(col) * t.r + c0 + j];
-        y = kSquared ? __fmul_rn(vv, vv) : vv;
+        y = kSquaredB ? __fmul_rn(vv, vv) : vv;
       }
       sm.b[j][l] = y;
     }
@@ -152,6 +151,28 @@ __device__ __forceinline__ void rank_r_product(float (&acc)[kTM][kTN],
         for (int c = 0; c < kTN; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
     }
   }
+}
+
+// TeZO's a-side: u * tau (kSquared: (u * u) * tau), each factor product
+// rounded as the reference's elementwise products are.
+template <bool kSquared>
+struct TauA {
+  static __device__ __forceinline__ float a(const float* __restrict__ u,
+                                            const float* __restrict__ tau, int row, int c0,
+                                            int j, int r) {
+    const float uu = u[static_cast<size_t>(row) * r + c0 + j];
+    return kSquared ? __fmul_rn(__fmul_rn(uu, uu), tau[c0 + j]) : __fmul_rn(uu, tau[c0 + j]);
+  }
+};
+
+// TeZO's product: a = u * tau (kSquared: (u * u) * tau), b = v (v * v).
+template <bool kSquared>
+__device__ __forceinline__ void rank_r_product(float (&acc)[kTM][kTN],
+                                               const float* __restrict__ u,
+                                               const float* __restrict__ v,
+                                               const float* __restrict__ tau,
+                                               const Tile& t, RankSmem& sm) {
+  rank_product<kSquared, TauA<kSquared>>(acc, u, v, tau, t, sm);
 }
 
 // One delta: w <- round_T(d * w + sc * z), each product and the sum rounded

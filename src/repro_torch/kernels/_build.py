@@ -102,6 +102,8 @@ _SIGNATURES = {
     "paged_decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     # w, out, u, v, tau, chain, B, m, n, r, dtype, stream
     "tezo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
+    # w, out, u, v, sigma, chain, B, m, n, r, dtype, stream
+    "subzo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
     # w, out, u, v, tau_m, tau_v, tau_r, restore chain, -lr, eps, decay,
     # B, m, n, r, dtype, stream
     "tezo_adam_update_fwd": [_P] * 7 + [DeltaChain, _F, _F, _F] + [_I] * 5 + [_P],

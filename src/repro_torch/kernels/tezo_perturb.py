@@ -19,6 +19,12 @@ off the original weights that way).
 
 On a CPU tensor :func:`tezo_perturb` runs :func:`tezo_perturb_plain`; on a
 CUDA tensor it launches the kernel or raises.
+
+LOZO's ``W ← round_W(d_s·W + scale_s·U·V_sᵀ)`` chains run on the same
+kernel (:func:`lozo_chain_k`, the reference's ``ops.lozo_chain_k``): U
+repeated k times and the V blocks side by side widen the factors to k·r,
+and τ row s is 1 on block s and 0 elsewhere, so each delta sums exact
+zeros outside its block and the chain is bitwise k single passes.
 """
 
 from __future__ import annotations
@@ -116,3 +122,33 @@ def tezo_perturb(w, u, v, taus, scales, decay=None, out=None):
 
 
 tezo_perturb.launches = 0
+
+
+def lozo_chain_plain(w, u, vs, scales, decay=None, out=None):
+    """The LOZO chain in plain PyTorch: one ``add_scaled`` over ``u·vᵀ`` per
+    delta, the reference's jnp branch."""
+    k = len(scales)
+    res = w
+    for s in range(k):
+        res = add_scaled(res, torch.matmul(u, vs[s].transpose(-1, -2)), scales[s],
+                         decay if s == k - 1 else None)
+    out = w if out is None else out
+    return out.copy_(res)
+
+
+def lozo_chain_k(w, u, vs, scales, decay=None, out=None):
+    """``scales[s]·U·vs[s]ᵀ`` for s in order, in one pass over ``w`` (in
+    place, or into ``out``): ``u [..., m, r]`` the window's shared factor,
+    ``vs`` k fresh ``[..., n, r]`` factors, f32.  On the card, one
+    ``tezo_perturb`` launch over the widened factors."""
+    if w.device.type == "cpu":
+        return lozo_chain_plain(w, u, vs, scales, decay=decay, out=out)
+    k, r = len(vs), u.shape[-1]
+    if len(scales) != k:
+        raise ValueError(f"{k} V factors but {len(scales)} scales")
+    uk = torch.cat([u] * k, dim=-1) if k > 1 else u
+    vk = torch.cat(list(vs), dim=-1) if k > 1 else vs[0]
+    eye = torch.eye(k, dtype=torch.float32, device=w.device)
+    taus = eye[:, :, None].expand(k, k, r).reshape(k, k * r)  # eye(k) repeated over r
+    taus = taus.expand(*w.shape[:-2], k, k * r).contiguous()
+    return tezo_perturb(w, uk, vk, taus, scales, decay=decay, out=out)

@@ -5,27 +5,32 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch opt-125m --method mezo_adam                    # the MeZO baseline
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch opt-125m --method subzo --adaptive-q           # a low-rank baseline
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
 Build the model, draw the reference's initial params and ZO state from
 ``--seed``, then loop: prefetched batch → pinned non-blocking copy → one ZO
 step (the weight passes on the ``tezo_perturb`` / ``tezo_adam_update``
-kernels for the TeZO family and on ``noise_perturb`` / ``noise_update``
-for the MeZO family, the forwards on the flash-attention kernel), with the
-losses left on the device and read once per log boundary.  On the card, every step
-after the first runs under ``torch.cuda.set_sync_debug_mode("error")``: a
-step that waited on the device would raise.  Prints the reference's JSON
-result (``final_eval_loss`` and the rest) without the history.
+kernels for the TeZO family, on ``noise_perturb`` / ``noise_update`` for
+the MeZO family, on ``tezo_perturb`` for LOZO and on ``subzo_perturb`` for
+SubZO, the forwards on the flash-attention kernel), with the losses left on
+the device and read once per log boundary.  On the card, every step after
+the first runs under ``torch.cuda.set_sync_debug_mode("error")``: a step
+that waited on the device would raise.  ``--adaptive-q`` grows q at a log
+boundary (``core.adaptive``), outside that guard, and rebuilds the step.
+Prints the reference's JSON result (``final_eval_loss``, the final
+``q_probes`` and the rest) without the history.
 
 Options whose modules are not ported raise and name their ROADMAP.md item:
-``--mesh``, ``--probe-parallel``, ``--ensemble``, ``--adaptive-q``,
-``--weight-quant``, ``--rank-mode spectral``, ``--pretrain-steps`` and
-the LOZO and SubZO methods.
+``--mesh``, ``--probe-parallel``, ``--ensemble``, ``--weight-quant``,
+``--rank-mode spectral`` and ``--pretrain-steps``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from contextlib import contextmanager
@@ -37,6 +42,7 @@ import torch
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adaptive import AdaptiveQ
 from repro_torch.core.estimator import ZOConfig, get_method
 from repro_torch.core.zo_step import build_zo_train_step, init_zo_state, zo_pass_count
 from repro_torch.data import DataConfig, Prefetcher, batch_at_step
@@ -48,23 +54,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue A item {item})")
 
 
-def _check_ported(*, mesh, probe_parallel, ensemble, straggler_prob, adaptive_q,
-                  weight_quant, rank_mode, pretrain_steps, method) -> None:
+def _check_ported(*, mesh, probe_parallel, ensemble, straggler_prob, weight_quant,
+                  rank_mode, pretrain_steps, method) -> None:
     if mesh is not None:
         raise _not_ported("--mesh", "13")
     if probe_parallel:
         raise _not_ported("--probe-parallel", "13")
     if ensemble > 1 or straggler_prob > 0:
         raise _not_ported("--ensemble / --straggler-prob", "13")
-    if adaptive_q:
-        raise _not_ported("--adaptive-q", "10")
     if weight_quant != "none":
         raise _not_ported("--weight-quant", "11")
     if rank_mode != "const":
         raise _not_ported(f"--rank-mode {rank_mode}", "4")
     if pretrain_steps > 0:
         raise _not_ported("--pretrain-steps (first-order pretraining)", "14")
-    get_method(method)  # KeyError naming the item for the other families
+    get_method(method)  # KeyError for an unknown method
 
 
 def to_device(host_batch: dict, device: torch.device) -> dict:
@@ -109,6 +113,7 @@ def train(
     restore_mode: str = "inplace",
     probe_parallel: bool = False,
     adaptive_q: bool = False,
+    q_max: int = 16,
     seed: int = 0,
     ckpt_dir: str | None = None,
     ckpt_every: int = 100,
@@ -129,9 +134,8 @@ def train(
     final ``state`` with ``return_state``).  ``model_cfg`` replaces the
     registered config (a depth-cut model, say)."""
     _check_ported(mesh=mesh, probe_parallel=probe_parallel, ensemble=ensemble,
-                  straggler_prob=straggler_prob, adaptive_q=adaptive_q,
-                  weight_quant=weight_quant, rank_mode=rank_mode,
-                  pretrain_steps=pretrain_steps, method=method)
+                  straggler_prob=straggler_prob, weight_quant=weight_quant,
+                  rank_mode=rank_mode, pretrain_steps=pretrain_steps, method=method)
     cfg = model_cfg or (get_smoke_config(arch) if smoke else get_config(arch))
     model = build_model(cfg, device)
     dev = model.device
@@ -142,7 +146,8 @@ def train(
     zo_cfg = ZOConfig(
         method=method, lr=lr, rho=rho, rank=rank, weight_quant=weight_quant,
         q_probes=q_probes, restore_mode=restore_mode, probe_parallel=probe_parallel,
-        seed=seed, total_steps=steps,
+        adaptive_q=adaptive_q, q_max=q_max, seed=seed,
+        total_steps=steps,
     )
     state = init_zo_state(model.init(PRNGKey(seed)), zo_cfg)
     step_fn = build_zo_train_step(model.loss_fn, zo_cfg)
@@ -155,6 +160,7 @@ def train(
         print(f"[train] restored step {start_step} from {ckpt.dir}")
 
     eval_batch = to_device(batch_at_step(data, 999_999_999), dev)
+    controller = AdaptiveQ(q=zo_cfg.q_probes, q_max=zo_cfg.q_max) if adaptive_q else None
     prefetch = Prefetcher(data, start_step=start_step)
     history: list[dict] = []
     # the window holds the losses still on the device: they are read in one
@@ -185,6 +191,12 @@ def train(
                     "wall_s": round(time.time() - t_start, 1),
                 }
                 losses_window.clear()
+                if controller is not None:
+                    new_q = controller.observe(float(metrics["kappa_var"]), rec["kappa_abs"])
+                    if new_q is not None:  # the step is built for one q: rebuild it
+                        zo_cfg = dataclasses.replace(zo_cfg, q_probes=new_q)
+                        step_fn = build_zo_train_step(model.loss_fn, zo_cfg)
+                        rec["q_probes"] = new_q
                 if (step_idx + 1) % eval_every == 0:
                     rec["eval_loss"] = float(model.loss_fn(state.params, eval_batch))
                 history.append(rec)
@@ -206,7 +218,7 @@ def train(
         "method": method,
         "device": dev.type,
         "steps": steps,
-        "q_probes": zo_cfg.q_probes,
+        "q_probes": zo_cfg.q_probes,  # the final q (adaptive-q may grow it)
         "restore_mode": restore_mode,
         "weight_quant": weight_quant,
         "probe_parallel": probe_parallel,
@@ -233,8 +245,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="opt-125m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--method", default="tezo_adam",
-                    help="tezo, tezo_m, tezo_adam, mezo, mezo_m or mezo_adam (lozo, "
-                    "lozo_m and subzo are not ported yet)")
+                    help="tezo, tezo_m, tezo_adam, mezo, mezo_m, mezo_adam, lozo, lozo_m "
+                    "or subzo")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -250,7 +262,10 @@ def main(argv=None) -> None:
                     "Algorithm 1 (3q+1 passes); exact = branch the ±ρ copies off "
                     "the originals (2× weight memory)")
     ap.add_argument("--probe-parallel", action="store_true")
-    ap.add_argument("--adaptive-q", action="store_true")
+    ap.add_argument("--adaptive-q", action="store_true",
+                    help="AdaZeta-style probe growth: double q (up to --q-max) when the "
+                    "κ-variance EMA says the estimator is noise-dominated")
+    ap.add_argument("--q-max", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)

@@ -13,8 +13,11 @@ A key is a pair of Python ints (two uint32 words).  Keys depend only on
 the seed, the step, the probe and the leaf path, so they are derived on the
 host and never need the device.  Draws run in torch on the device they are
 asked for, in int64 arithmetic masked to 32 bits (torch's uint32 support is
-partial).  The integer parts (keys, bits, uniforms) equal the reference's
-bit for bit.  The normals replay XLA:CPU's own f32 ``log``/``log1p``
+partial).  Nothing in a draw copies from the host but the keys themselves
+(pinned, non-blocking) and nothing reads back, so a draw on the card never
+waits for it; :class:`NormalDraws` keeps, per layout of sizes, the
+per-element segment and index tensors it gathers the keys with.  The
+integer parts (keys, bits, uniforms) equal the reference's bit for bit.  The normals replay XLA:CPU's own f32 ``log``/``log1p``
 polynomials and the multiply-adds its backend fuses (emulated in f64), and
 take the correctly rounded square root XLA takes (torch's own f32 ``sqrt``
 on the CPU is an ulp off on about 1 in 140 inputs), so they equal the
@@ -40,10 +43,12 @@ _SPAN = float(np.float32(1.0) - _LO)
 _SQRT2 = float(np.float32(np.sqrt(2)))
 
 # XLA's ErfInv32 coefficients (Giles, "Approximating the erfinv function")
-_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
-                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
-_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
-                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_ERFINV_SMALL = tuple(float(np.float32(c)) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+    -0.00125372503, -0.00417768164, 0.246640727, 1.50140941))
+_ERFINV_LARGE = tuple(float(np.float32(c)) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+    -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
 
 
 def _rotl(x, d: int):
@@ -193,15 +198,15 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's f32 ErfInv (Giles' polynomial, Horner steps fused) for |x| < 1."""
+    """XLA's f32 ErfInv (Giles' polynomial, Horner steps fused) for |x| < 1.
+    The coefficients enter as f32-valued scalars, so a draw on the card
+    copies nothing from the host."""
     w = -_xla_log1p(x * -x)
     small = w < 5.0
     w = torch.where(small, w - 2.5, sqrt_rn(w) - 3.0)
-    lo = torch.tensor(_ERFINV_SMALL, dtype=torch.float32, device=x.device)
-    hi = torch.tensor(_ERFINV_LARGE, dtype=torch.float32, device=x.device)
-    p = torch.where(small, lo[0], hi[0])
-    for i in range(1, len(_ERFINV_SMALL)):
-        p = _fma(p, w, torch.where(small, lo[i], hi[i]))
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
+    for lo, hi in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        p = _fma(p, w, torch.where(small, lo, hi))
     return p * x
 
 
@@ -224,17 +229,56 @@ def normal(key, shape, device="cpu") -> torch.Tensor:
     return out.reshape(shape)
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``: one pinned, non-blocking copy on the
+    card (a pageable copy would wait on the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+class NormalDraws:
+    """Vectorized normal draws on one device: ``draws(keys, sizes)`` is the
+    concatenation of ``normal(keys[i], (sizes[i],)).ravel()``, ``keys``
+    ``[N, 2]`` ints.  Per call only the keys go to the device; the
+    per-element segment and index tensors are formed on the device once
+    per layout of sizes and kept by this object (one per training run)."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self._layouts: dict = {}
+
+    def _layout(self, sizes: np.ndarray) -> tuple:
+        """Each element's segment and index in it, formed on the device from
+        the sizes (``output_size`` keeps ``repeat_interleave`` from waiting
+        on the device for the total)."""
+        key = sizes.tobytes()
+        if key not in self._layouts:
+            if int(sizes.max()) > MASK:
+                raise ValueError("a draw of 2**32 elements or more is not supported")
+            total = int(sizes.sum())
+            seg = torch.repeat_interleave(
+                torch.arange(len(sizes), device=self.device), to_device(sizes, self.device),
+                output_size=total)
+            starts = to_device(np.cumsum(sizes) - sizes, self.device)
+            idx = torch.arange(total, device=self.device) - starts.index_select(0, seg)
+            self._layouts[key] = (seg, idx)
+        return self._layouts[key]
+
+    def __call__(self, keys, sizes) -> torch.Tensor:
+        sizes = np.asarray(sizes, dtype=np.int64).reshape(-1)
+        if int(sizes.sum()) == 0:
+            return torch.empty(0, dtype=torch.float32, device=self.device)
+        seg, idx = self._layout(sizes)
+        keys_t = to_device(np.asarray(keys, dtype=np.int64).reshape(-1, 2).T.copy(), self.device)
+        x1, x2 = threefry2x32(keys_t[0].index_select(0, seg), keys_t[1].index_select(0, seg),
+                              0, idx)
+        return _normal_from_bits(x1 ^ x2)
+
+
 def normal_many(keys, sizes, device="cpu") -> torch.Tensor:
-    """Many small draws in one vectorized pass: the concatenation of
-    ``normal(keys[i], (sizes[i],)).ravel()``.  ``keys`` is int64 ``[N, 2]``."""
-    sizes_t = torch.as_tensor(np.asarray(sizes, dtype=np.int64))
-    keys_t = torch.as_tensor(np.asarray(keys, dtype=np.int64).reshape(-1, 2))
-    total = int(sizes_t.sum())
-    if total == 0:
-        return torch.empty(0, dtype=torch.float32, device=device)
-    k1 = torch.repeat_interleave(keys_t[:, 0], sizes_t)
-    k2 = torch.repeat_interleave(keys_t[:, 1], sizes_t)
-    starts = torch.repeat_interleave(torch.cumsum(sizes_t, 0) - sizes_t, sizes_t)
-    idx = torch.arange(total, dtype=torch.int64) - starts
-    x1, x2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
-    return _normal_from_bits(x1 ^ x2).to(device)
+    """Many draws in one vectorized pass on ``device``: the concatenation of
+    ``normal(keys[i], (sizes[i],)).ravel()`` (a one-off
+    :class:`NormalDraws`)."""
+    return NormalDraws(device)(keys, sizes)
