@@ -7,7 +7,13 @@ leaf's JAX ``keystr`` path (``.params['blocks']['wq']``,
 ``manifest.json`` of shapes, dtype names and the caller's ``extra``.  bf16
 leaves are stored as 2-byte void records with dtype name ``bfloat16``, as
 the reference writes them, so either package reads the other's
-checkpoints.  Writes are atomic (a ``.tmp`` directory renamed into place),
+checkpoints.  A quantized leaf (``core.quant.QuantLeaf``) is stored field
+by field under the keys JAX's own flattening gives its tensors
+(``.params['blocks']['wq'].codes``, ``.codebook``, ... ``.nacc`` when
+present; the codes as uint32); its meta fields (bits, K, dtype, scheme)
+come from the template on restore.  (The reference's checkpointer walks a
+QuantLeaf as one leaf and pickles it whole under the dense path, which its
+own restore cannot load.)  Writes are atomic (a ``.tmp`` directory renamed into place),
 ``save_async`` copies to the host before it returns and writes on a
 background thread, and only the newest ``keep`` checkpoints stay.
 """
@@ -141,7 +147,8 @@ class Checkpointer:
                 if dataclasses.is_dataclass(node) and not isinstance(node, type):
                     return dataclasses.replace(node, **{
                         f.name: place(getattr(node, f.name), prefix + attr_key(f.name))
-                        for f in dataclasses.fields(node) if getattr(node, f.name) is not None
+                        for f in dataclasses.fields(node)
+                        if getattr(node, f.name) is not None and not f.metadata.get("static")
                     })
                 if prefix not in arrays:
                     raise KeyError(f"checkpoint {d} missing leaf {prefix}")

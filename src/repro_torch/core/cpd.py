@@ -10,8 +10,10 @@ own τ.
 Every draw replays the reference's stream (``utils.jax_random``): factors
 from ``fold_in_path(key, path + "#u"/"#v")``, τ from
 ``fold_in_path(fold_in(key_t, probe), path + "#tau")``, a dense leaf's noise
-from ``path + "#dense"``.  Per-layer rank masks (spectral rank) and
-quantized leaves are not ported yet (ROADMAP.md Queue A).
+from ``path + "#dense"``.  A quantized leaf (``core.quant.QuantLeaf``)
+carries its own frozen factors, drawn at quantize time from the same
+streams.  Per-layer rank masks (spectral rank) are not ported yet
+(ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.quant import QuantLeaf
 from repro_torch.utils import jax_random
 from repro_torch.utils.tree import fold_in_path, map_with_path
 
@@ -71,11 +74,15 @@ def init_factors(
     ranks: Optional[dict] = None,
 ) -> FactorTree:
     """Draw the frozen N(0, 1) f32 factors of every low-rank leaf, on the
-    leaf's device."""
+    leaf's device.  A QuantLeaf's factors are its own ``qu``/``qv`` (the
+    same tensors: nothing writes them), drawn from the same streams at its
+    rank."""
     factors: FactorTree = {}
 
     def make(path: str, leaf: torch.Tensor) -> torch.Tensor:
-        if is_lowrank_leaf(path, leaf):
+        if isinstance(leaf, QuantLeaf):
+            factors[path] = CPDFactor(u=leaf.qu, v=leaf.qv)
+        elif is_lowrank_leaf(path, leaf):
             r = _leaf_rank(path, leaf, ranks, default_rank)
             batch, (m, n) = tuple(leaf.shape[:-2]), leaf.shape[-2:]
             factors[path] = CPDFactor(

@@ -24,6 +24,20 @@ drew on the host (``core.estimator.StepNoise``).  All of them write the
 leaf in place unless ``out`` names another buffer (the ``exact`` restore
 mode), and every chained op replays the rounding of the separate passes it
 merges, so chained and unchained schedules agree bit for bit.
+
+Quantized leaves (``core.quant.QuantLeaf``).  Every leaf op takes a
+QuantLeaf wherever it takes a dense leaf and branches on the leaf kind
+first.  The TeZO-family ops close the delta in τ-space, ``acc +=
+scale·τ`` through the same ``add_scaled`` per delta, so no weight-sized
+byte moves on any pass and chained == unchained holds bitwise; TeZO-Adam
+applies its preconditioner in τ-space (``τ_m·rsqrt(τ_v + ε)``), the
+reference's documented deviation from the dense leaf's Eq.-8
+reconstruction.  The MeZO-family ops run on the leaf's dense ``nacc``
+buffer under the leaf's own path (the noise kernels where it is eligible),
+so the counter streams are the dense run's.  The new ``acc`` is a new
+tensor (r floats per layer) and the leaf a new QuantLeaf; ``nacc`` is
+written in place unless ``out`` names its buffer.  Weight decay is
+rejected.  The forward half is :func:`quant_matmul_fwd`.
 """
 
 from __future__ import annotations
@@ -31,9 +45,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.cpd import CPDFactor, is_lowrank_leaf
+from repro_torch.core.quant import QuantLeaf, dequantize, scaled_lut
 from repro_torch.kernels import zo_noise
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import (paged_decode_attention,
+                                                  paged_verify_attention)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.tezo_adam import tezo_adam_update
 from repro_torch.kernels.subzo_perturb import subzo_perturb
 from repro_torch.kernels.tezo_perturb import add_scaled, lozo_chain_k, tezo_perturb
@@ -66,6 +83,19 @@ def decode_attention_fwd(
     return paged_decode_attention(q, k_pages, v_pages, block_tables, lengths)
 
 
+def verify_attention_fwd(
+    q: torch.Tensor,  # [S, T, H, dh] the draft window per decode slot
+    k_pages: torch.Tensor,  # [n_pages, page_size, KV, dh] shared page pool
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, pages_per_slot] int32 physical page ids
+    lengths: torch.Tensor,  # [S] int32; window position t attends kpos < lengths + t
+) -> torch.Tensor:
+    """Paged multi-token speculative-verify attention for one verify step:
+    the T-token generalization of :func:`decode_attention_fwd`, on the same
+    kernel (at T = 1 bitwise the decode path)."""
+    return paged_verify_attention(q, k_pages, v_pages, block_tables, lengths)
+
+
 # ---------------------------------------------------------------------------
 # the probe-mean fold
 # ---------------------------------------------------------------------------
@@ -85,6 +115,48 @@ def kappa_fold(kappas: torch.Tensor, terms, *, square: bool = False) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
+# the QuantLeaf protocol
+# ---------------------------------------------------------------------------
+
+
+def _quant_no_decay(decay) -> None:
+    if decay is not None:
+        raise ValueError(
+            "weight decay is unsupported on quantized leaves (it scales the "
+            "frozen packed base) — quant.validate_quant_config rejects this "
+            "at build time"
+        )
+
+
+def _quant_nacc(w: QuantLeaf) -> torch.Tensor:
+    if w.nacc is None:
+        raise ValueError(
+            "dense-noise op on a QuantLeaf without a noise buffer: "
+            "quantize with with_nacc=True (MeZO-family methods) — "
+            "see core.quant.quantize_for_config"
+        )
+    return w.nacc
+
+
+def _quant_acc_chain(w: QuantLeaf, taus, scales, decay=None) -> QuantLeaf:
+    """``acc += scaleᵢ·τᵢ`` in chain order, one ``add_scaled`` rounding per
+    delta, so the grouping of the deltas never changes the result."""
+    _quant_no_decay(decay)
+    acc = w.acc
+    for tau, s in zip(taus, scales):
+        acc = add_scaled(acc, tau, s)
+    return w.replace(acc=acc)
+
+
+def _on_nacc(w: QuantLeaf, res) -> QuantLeaf | tuple:
+    """Rewrap a dense-noise op's result on ``nacc``: its W (alone, or first
+    of a tuple with the moments) becomes the leaf's new ``nacc``."""
+    if isinstance(res, tuple):
+        return (w.replace(nacc=res[0]),) + res[1:]
+    return w.replace(nacc=res)
+
+
+# ---------------------------------------------------------------------------
 # TeZO-family leaf ops (factors and τ on the leaf's device)
 # ---------------------------------------------------------------------------
 
@@ -92,7 +164,9 @@ def kappa_fold(kappas: torch.Tensor, terms, *, square: bool = False) -> torch.Te
 def perturb_chain_leaf(w, factor: CPDFactor, taus, scales, *, out=None):
     """scalesᵢ·recon(τᵢ) in chain order, in one pass for one low-rank leaf:
     the perturb (one delta), the bridge (two) or a longer chain, bitwise
-    the single-delta passes."""
+    the single-delta passes.  A QuantLeaf adds the deltas to ``acc``."""
+    if isinstance(w, QuantLeaf):
+        return _quant_acc_chain(w, list(taus), list(scales))
     return tezo_perturb(w, factor.u, factor.v, torch.stack(list(taus), dim=-2),
                         list(scales), out=out)
 
@@ -110,8 +184,11 @@ def _restore_chain(restore, restore_scale):
 def sgd_update_leaf(w, factor: CPDFactor, ktau, lr, *, decay=None, restore_tau=None,
                     restore_scale=0.0, out=None):
     """W ← decay·W − lr·recon(ktau) (TeZO / TeZO-m), with the chained
-    restore deltas first in the same pass.  ``lr`` is a host float."""
+    restore deltas first in the same pass.  ``lr`` is a host float.  A
+    QuantLeaf adds the restore deltas and −lr·ktau to ``acc``."""
     taus, scales = _restore_chain(restore_tau, restore_scale)
+    if isinstance(w, QuantLeaf):
+        return _quant_acc_chain(w, taus + [ktau], scales + [-float(lr)], decay)
     return tezo_perturb(w, factor.u, factor.v, torch.stack(taus + [ktau], dim=-2),
                         scales + [-float(lr)], decay=decay, out=out)
 
@@ -119,8 +196,13 @@ def sgd_update_leaf(w, factor: CPDFactor, ktau, lr, *, decay=None, restore_tau=N
 def adam_update_leaf(w, factor: CPDFactor, tau_m, tau_v, lr, eps, *, decay=None,
                      restore_tau=None, restore_scale=0.0, out=None):
     """W ← decay·W − lr·M/√(V+ε) with M, V reconstructed from the τ-space
-    moments (Eq. 8), the chained restore deltas first in the same pass."""
+    moments (Eq. 8), the chained restore deltas first in the same pass.  A
+    QuantLeaf adds the restore deltas, then −lr·τ_m·rsqrt(τ_v + ε), to
+    ``acc`` (the factorwise preconditioner)."""
     taus, scales = _restore_chain(restore_tau, restore_scale)
+    if isinstance(w, QuantLeaf):
+        upd = tau_m.float() * torch.rsqrt(tau_v.float() + eps)
+        return _quant_acc_chain(w, taus + [upd], scales + [-float(lr)], decay)
     tau_r = torch.stack(taus, dim=-2) if taus else None
     return tezo_adam_update(w, factor.u, factor.v, tau_m, tau_v, lr, eps, decay=decay,
                             tau_r=tau_r, restore_scale=scales, out=out)
@@ -182,7 +264,10 @@ def noise_perturb_chain_leaf(w, key_t, path, probes, scales, dense_z, *, out=Non
     longer chain.  An eligible leaf draws z from the counter stream of
     ``(key_t, path)`` on the noise kernel; any other adds the step's
     pre-drawn ``jax.random`` z, ``dense_z(probe)``, as the reference's jnp
-    branch does."""
+    branch does.  A QuantLeaf runs the chain on its ``nacc``."""
+    if isinstance(w, QuantLeaf):
+        return _on_nacc(w, noise_perturb_chain_leaf(_quant_nacc(w), key_t, path, probes,
+                                                    scales, dense_z, out=out))
     if noise_kernel_eligible(w):
         return zo_noise.noise_perturb(w, zo_noise.leaf_seed(key_t, path), probes, scales,
                                       out=out)
@@ -198,7 +283,13 @@ def _noise_update(variant, w, m_buf, v_buf, key_t, path, kappas, lr, beta1, beta
                   dense_z, decay, restore_probe, restore_scale):
     """One leaf's update: the noise kernel (W, M and V in place) on an
     eligible leaf, else the reference's jnp branch over pre-drawn z (new
-    tensors).  Returns ``(w,)``, ``(w, m)`` or ``(w, m, v)``."""
+    tensors); a QuantLeaf's on its ``nacc``.  Returns ``(w,)``, ``(w, m)``
+    or ``(w, m, v)``."""
+    if isinstance(w, QuantLeaf):
+        _quant_no_decay(decay)
+        return _on_nacc(w, _noise_update(variant, _quant_nacc(w), m_buf, v_buf, key_t, path,
+                                         kappas, lr, beta1, beta2, eps, dense_z, None,
+                                         restore_probe, restore_scale))
     probes, scales = _restore_chain(restore_probe, restore_scale)
     if noise_kernel_eligible(w):
         return zo_noise.noise_update(
@@ -237,3 +328,45 @@ def noise_adam_update_leaf(w, m_buf, v_buf, key_t, path, kappas, lr, beta1, beta
     """Dense Adam step; returns (w', m', v')."""
     return _noise_update("adam", w, m_buf, v_buf, key_t, path, kappas, lr, beta1, beta2, eps,
                          dense_z, decay, restore_probe, restore_scale)
+
+
+# ---------------------------------------------------------------------------
+# the QuantLeaf forward
+# ---------------------------------------------------------------------------
+
+
+def _quant_matmul_ref(x: torch.Tensor, w: QuantLeaf) -> torch.Tensor:
+    """Port of the reference's XLA gather twin of the quantized forward:
+    dequantize in the leaf's dtype by a gather, contract densely in f32,
+    add the temporal-factor delta (and ``nacc``).  The tests hold the
+    forward against it; nothing on the model path calls it."""
+    xf = x.float()
+    out = torch.matmul(xf, dequantize(w).float())
+    ut = w.qu * w.acc[..., None, :]
+    out = out + torch.matmul(torch.matmul(xf, ut), w.qv.transpose(-1, -2))
+    if w.nacc is not None:
+        out = out + torch.matmul(xf, w.nacc.float())
+    return out.to(x.dtype)
+
+
+def quant_matmul_fwd(x: torch.Tensor, w: QuantLeaf) -> torch.Tensor:
+    """``x @ W_eff`` for one layer's quantized leaf (``codes`` [Kw, N]), the
+    forward half of the QuantLeaf protocol (models call it through
+    ``layers.weight_matmul``).  ``W_eff = dequant(codes) + qu·diag(acc)·qvᵀ
+    [+ nacc]`` is never materialized: ``kernels.quant_matmul`` reads the
+    packed codes, dequantizes a tile through the scaled LUT and adds
+    ``xu @ qvᵀ``, with ``xu = x @ (qu·acc)`` (an [M, r] product) formed here
+    first.  The MeZO family's ``nacc`` delta is a separate f32 product on
+    both devices, as in the reference (state traffic, not weight
+    materialization)."""
+    if w.codes.dim() != 2:
+        raise ValueError(f"quant_matmul_fwd takes one layer's leaf; got codes "
+                         f"{tuple(w.codes.shape)}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    xf = x2.float()
+    xu = torch.matmul(xf, w.qu * w.acc[None, :])
+    out = quant_matmul(x2.contiguous(), w.codes, scaled_lut(w), xu, w.qv, bits=w.bits)
+    if w.nacc is not None:
+        out = (out.float() + torch.matmul(xf, w.nacc.float())).to(x.dtype)
+    return out.reshape(lead + (out.shape[-1],))

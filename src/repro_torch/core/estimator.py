@@ -75,7 +75,7 @@ class ZOConfig:
     probe_parallel: bool = False  # raises: ROADMAP.md Queue A item 13
     adaptive_q: bool = False  # AdaZeta-style q growth by the launcher (core.adaptive)
     q_max: int = 16  # adaptive-q growth cap
-    weight_quant: str = "none"  # raises unless "none": Queue A item 11
+    weight_quant: str = "none"  # none | nf4 | lut3 | lut4 (core.quant.QuantLeaf)
     lr_schedule: str = "const"  # const | cosine | linear_warmup_cosine
     warmup_steps: int = 0
     total_steps: int = 10_000
@@ -237,7 +237,7 @@ def _dense_leaves(params, covered) -> dict:
 
 
 def _device(params):
-    return flatten_with_path(params)[0][1].device
+    return flatten_with_path(params, atomic=True)[0][1].device
 
 
 class ZOMethod:
@@ -448,8 +448,9 @@ class MeZO(ZOMethod):
         return {}
 
     def _moments(self, params) -> dict:
+        """f32 zeros per leaf, a QuantLeaf's of its dense shape."""
         return {path: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-                for path, w in flatten_with_path(params)}
+                for path, w in flatten_with_path(params, atomic=True)}
 
     def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
                restore_scale=0.0):

@@ -30,6 +30,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.estimator import ZOConfig, get_method
 from repro_torch.utils import jax_random
 from repro_torch.utils.tree import flatten_with_path
@@ -70,12 +71,20 @@ class ZOTrainState:
 
 def init_zo_state(params: Any, cfg: ZOConfig, ranks: dict | None = None) -> ZOTrainState:
     """The reference's key chain: PRNGKey(seed) → fold_in 0xF0 for the
-    method's factors, fold_in 0x5EED for the step keys."""
-    if cfg.weight_quant != "none":
-        raise NotImplementedError(
-            "weight_quant is not ported yet (ROADMAP.md Queue A item 11)"
-        )
+    method's factors, fold_in 0x5EED for the step keys.  With
+    ``weight_quant`` the eligible block leaves are quantized first, their
+    qu/qv drawn from the key TeZO's ``init_factors`` gets (the method key
+    folded with 1), so the quantized run's factors are the dense run's."""
     key = jax_random.PRNGKey(cfg.seed)
+    if cfg.weight_quant != "none":
+        if ranks is not None:
+            raise ValueError(
+                "weight_quant with per-path ranks/rank_masks is unsupported: "
+                "quantized leaves draw their factors at cfg.rank before the "
+                "method sees the overrides"
+            )
+        params = quant.quantize_for_config(
+            params, cfg, jax_random.fold_in(jax_random.fold_in(key, 0xF0), 1))
     method = get_method(cfg.method)
     mstate = method.init(params, jax_random.fold_in(key, 0xF0), cfg, ranks)
     return ZOTrainState(params=params, mstate=mstate, step=0,
@@ -88,6 +97,7 @@ def build_zo_train_step(
     """``loss_fn(params, batch)`` → f32 scalar on the params' device."""
     method = get_method(cfg.method)
     zo_pass_count(cfg.q_probes, cfg.restore_mode)  # fail fast on unknown schedules
+    quant.validate_quant_config(cfg)  # ...and incompatible weight_quant combinations
     if cfg.probe_parallel:
         raise NotImplementedError(
             "probe_parallel is not ported yet (ROADMAP.md Queue A item 13)"
@@ -96,8 +106,13 @@ def build_zo_train_step(
     cache: dict = {}  # what the method reuses across steps (LOZO's window of U)
 
     def branch(params):
+        """The exact mode's buffers, one per leaf (a QuantLeaf's for its
+        ``nacc``; its ``acc`` is new each pass)."""
         if not scratch:
-            scratch.update({p: torch.empty_like(w) for p, w in flatten_with_path(params)})
+            for p, w in flatten_with_path(params, atomic=True):
+                if isinstance(w, quant.QuantLeaf):
+                    w = w.nacc
+                scratch[p] = None if w is None else torch.empty_like(w)
         return scratch
 
     def step_fn(state: ZOTrainState, batch: Any) -> tuple[ZOTrainState, dict]:

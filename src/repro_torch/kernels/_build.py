@@ -100,6 +100,10 @@ _SIGNATURES = {
     # q, k_pages, v_pages, block_tables, lengths, out, S, H, KV, dh,
     # page_size, pages_per_slot, scale, q dtype, pages dtype, stream
     "paged_decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    # the same with the window length T after S
+    "paged_verify_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    # x, codes, lut, xu, qv, out, M, K, Kw, N, r, bits, x dtype, stream
+    "quant_matmul_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # w, out, u, v, tau, chain, B, m, n, r, dtype, stream
     "tezo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
     # w, out, u, v, sigma, chain, B, m, n, r, dtype, stream

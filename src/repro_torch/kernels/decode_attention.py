@@ -1,27 +1,36 @@
-"""Paged (block-table) KV-cache decode attention: the hand-written CUDA
-kernel and its plain PyTorch version.
+"""Paged (block-table) KV-cache attention for decode and speculative
+verify: the hand-written CUDA kernel and its plain PyTorch version.
 
-Replaces the TPU kernel
-``repro/kernels/decode_attention.py::paged_decode_attention`` (through
-``repro.kernels.ops.paged_decode_attention``).  The kernel is
-``csrc/paged_decode_attention.cu``: one CUDA block per (slot, kv head)
-reads its own block-table row and length (the TPU kernel's scalar
-prefetch), loops over the slot's live positions in chunks gathered through
-the table, masks the tail page, and serves the G = H / KV query rows of the
-head together.  A length-0 slot writes exact zeros.  On the H100 it is
-bound by the bytes of the live KV pages.  See the source for the design.
+Replaces the TPU kernels
+``repro/kernels/decode_attention.py::paged_decode_attention`` and
+``::paged_verify_attention`` (through ``repro.kernels.ops``).  One kernel
+serves both: ``csrc/paged_verify_attention.cu`` attends a window of T query
+tokens per slot, window position t reading ``kpos < lengths[s] + t`` (the
+slot's history plus the causal intra-window prefix), and the decode entry
+point (``csrc/paged_decode_attention.cu``) launches it with T = 1, so a
+T = 1 verify is bitwise a decode step, as in the reference.  One CUDA block
+per (slot, kv head) reads its own block-table row and length (the TPU
+kernel's scalar prefetch), loops over the positions the window reaches in
+chunks gathered through the table, masks the tail page, and serves the
+T * G query rows of the head together.  Every limit is clamped to the
+slot's ``pages_per_slot * page_size`` positions; a length-0 slot writes
+exact zeros.  On the H100 it is bound by the bytes of the live KV pages.
+See the source for the design.
 
-Unlike ``repro.kernels.ops`` the wrapper pads neither G nor dh.
+Unlike ``repro.kernels.ops`` the wrappers pad neither G nor dh.  The kernel
+keeps T * G * dh (dh padded to 32, 64 or 128) within 1024 register
+elements; the wrappers raise on a window that does not fit, never
+truncate it.
 
 Dead slots: the plain version here follows the kernel (exact zeros for a
-length-0 slot).  The reference's XLA twin
-(``repro.models.layers.paged_decode_attention_ref``, ported as
-``repro_torch.models.layers.paged_decode_attention_ref``) instead spreads a
-uniform softmax over the null page's rows for such a slot.
+length-0 slot).  The reference's XLA twins
+(``repro.models.layers.paged_decode_attention_ref`` and
+``paged_verify_attention_ref``, ported in ``repro_torch.models.layers``)
+instead spread a uniform softmax over the null page's rows for such a slot.
 
-On a CPU tensor :func:`paged_decode_attention` runs
-:func:`paged_decode_attention_plain`; on a CUDA tensor it launches the
-kernel or raises.
+On a CPU tensor :func:`paged_decode_attention` and
+:func:`paged_verify_attention` run their plain versions; on a CUDA tensor
+they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-MAX_GROUP_ELEMS = 1024  # G * head dim padded to 32/64/128 (kernel registers)
+MAX_GROUP_ELEMS = 1024  # T * G * head dim padded to 32/64/128 (kernel registers)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q dtype, page dtype) pairs the kernel takes: an f32 model keeps a bf16
 # cache, as the reference's ``decode_cache_dtype`` default does
@@ -40,41 +49,51 @@ _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)}
 
 
-def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths):
-    """The kernel's function in plain PyTorch: gather each slot's pages,
-    f32 scores over kpos < length, one softmax, zeros for length-0 slots.
-    q [S,H,dh] -> [S,H,dh] in q's dtype."""
-    S, H, dh = q.shape
+def paged_verify_attention_plain(q, k_pages, v_pages, block_tables, lengths):
+    """The kernel's function in plain PyTorch: gather each slot's pages, f32
+    scores, window position t over kpos < lengths + t (the gathered
+    ``pages_per_slot * page_size`` positions bound it), one softmax, zeros
+    for length-0 slots.  q [S,T,H,dh] -> [S,T,H,dh] in q's dtype."""
+    S, T, H, dh = q.shape
     KV = k_pages.shape[2]
     G = H // KV
     bt = block_tables.long()
     k = k_pages[bt].reshape(S, -1, KV, dh).float()  # [S, P*page_size, KV, dh]
     v = v_pages[bt].reshape(S, -1, KV, dh).float()
-    qg = q.float().reshape(S, KV, G, dh)
-    s = torch.einsum("skgd,stkd->skgt", qg, k) * dh**-0.5
+    qg = q.float().reshape(S, T, KV, G, dh)
+    s = torch.einsum("stkgd,sjkd->stkgj", qg, k) * dh**-0.5
     kpos = torch.arange(k.shape[1], device=q.device)
-    valid = kpos[None, :] < lengths[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    lim = lengths[:, None] + torch.arange(T, device=q.device)[None, :]  # [S, T]
+    valid = kpos[None, None, :] < lim[:, :, None]
+    s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("skgt,stkd->skgd", p, v)
-    out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
-    return out.reshape(S, H, dh).to(q.dtype)
+    out = torch.einsum("stkgj,sjkd->stkgd", p, v)
+    out = torch.where((lengths > 0)[:, None, None, None, None], out, 0.0)
+    return out.reshape(S, T, H, dh).to(q.dtype)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths):
+    """The decode kernel's function in plain PyTorch: the verify plain
+    version over a window of one token.  q [S,H,dh] -> [S,H,dh]."""
+    return paged_verify_attention_plain(q[:, None], k_pages, v_pages, block_tables,
+                                        lengths)[:, 0]
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths):
-    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"expected q [S,H,dh], pages [n,ps,KV,dh]; got "
+    """Validate a window call, q [S,T,H,dh]; returns (S, T, H, dh)."""
+    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"expected q [S,T,H,dh], pages [n,ps,KV,dh]; got "
                          f"{tuple(q.shape)}, {tuple(k_pages.shape)}")
-    S, H, dh = q.shape
+    S, T, H, dh = q.shape
     KV = k_pages.shape[2]
     if k_pages.shape[3] != dh or H % KV != 0:
         raise ValueError(f"q {tuple(q.shape)} and pages {tuple(k_pages.shape)} disagree")
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM} is not supported")
     dh_pad = 32 if dh <= 32 else 64 if dh <= 64 else 128
-    if (H // KV) * dh_pad > MAX_GROUP_ELEMS:
-        raise ValueError(f"G={H // KV} query rows of dh {dh} exceed the kernel's "
-                         f"{MAX_GROUP_ELEMS} register elements")
+    if T * (H // KV) * dh_pad > MAX_GROUP_ELEMS:
+        raise ValueError(f"T={T} window positions x G={H // KV} query rows of dh {dh} "
+                         f"exceed the kernel's {MAX_GROUP_ELEMS} register elements")
     if block_tables.shape[0] != S or lengths.shape != (S,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {S} slots")
@@ -89,6 +108,28 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return S, T, H, dh
+
+
+def _launch(entry: str, q, k_pages, v_pages, block_tables, lengths, window: bool):
+    """One launch of the shared kernel through the C entry ``entry``; q is
+    [S,T,H,dh] (``window``) or [S,H,dh]."""
+    qw = q if window else q[:, None]
+    S, T, H, dh = _check(qw, k_pages, v_pages, block_tables, lengths)
+    page_size, KV = k_pages.shape[1], k_pages.shape[2]
+    lib = _build.load()
+    out = torch.empty_like(q)
+    shape = (S, T, H, KV) if window else (S, H, KV)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            *shape, dh, page_size, block_tables.shape[1], dh**-0.5,
+            _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, entry)
+    return out
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
@@ -101,22 +142,32 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
         return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k_pages, v_pages, block_tables, lengths)
-    S, H, dh = q.shape
-    page_size, KV = k_pages.shape[1], k_pages.shape[2]
-    lib = _build.load()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.paged_decode_attention_fwd(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            S, H, KV, dh, page_size, block_tables.shape[1], dh**-0.5,
-            _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "paged_decode_attention_fwd")
+    if q.dim() != 3:
+        raise ValueError(f"expected q [S,H,dh]; got {tuple(q.shape)}")
+    out = _launch("paged_decode_attention_fwd", q, k_pages, v_pages, block_tables, lengths,
+                  window=False)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, lengths):
+    """A T-token window per slot against its pages.  q [S,T,H,dh], pages,
+    tables as :func:`paged_decode_attention`; ``lengths[s]`` is the kv count
+    window position 0 attends, position t attends kpos < min(lengths[s] + t,
+    P * page_size) -> [S,T,H,dh] in q's dtype.  Table entries below
+    ceil((lengths[s] + T - 1) / page_size), capped at P, must be valid page
+    ids."""
+    if q.device.type == "cpu":
+        return paged_verify_attention_plain(q, k_pages, v_pages, block_tables, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_verify_attention runs on cuda or cpu, not {q.device}")
+    out = _launch("paged_verify_attention_fwd", q, k_pages, v_pages, block_tables, lengths,
+                  window=True)
+    paged_verify_attention.launches += 1
+    return out
+
+
+paged_verify_attention.launches = 0

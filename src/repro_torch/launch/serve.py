@@ -18,25 +18,36 @@ static-batch driver it is checked against (counterpart of
   page-table edit, never a cache copy.  Page 0 is the null page that free
   slots' decode writes land on.
 * **Paged decode kernel.** Each step runs one fixed-shape
-  ``decode_step_paged`` over all slots; on the card its attention is the
-  hand-written paged decode kernel, and prefill attention the flash kernel.
+  ``verify_step_paged`` over all slots; without speculative decoding its
+  window is one token, which is ``decode_step_paged``, and on the card its
+  attention is the hand-written paged decode kernel.  Prefill attention is
+  the flash kernel.
+* **Speculative decoding** (``spec_decode=True``).  Each step drafts up to
+  ``draft_len`` tokens per slot by prompt lookup (:func:`prompt_lookup_draft`,
+  a pure function of the request's own history), scores the whole window in
+  one ``verify_step_paged`` forward (on the card the paged verify kernel)
+  and commits the longest draft prefix the model re-derives plus one bonus
+  token.  The window's KV is written optimistically and a rejected tail is
+  rolled back by the slot's length pointer alone.
 * **Threaded detokenize.** Emitted tokens go to a daemon worker through an
   unbounded queue; the backlog drains at ``finish()``.
 * **Page-budget exhaustion.** A request whose ``max_new`` overruns its
   slot's page quota is admitted with a truncated emission budget, flagged
   in its result and in stats.
 
-Every per-slot op in the decode step is row-independent, so a request's
-token stream is bitwise-identical whether it is served alone or next to
-arbitrary other requests.  Greedy decoding is ``argmax``.  Temperature
-sampling draws Gumbel noise from a ``torch.Generator`` seeded from (request
-seed, emitted position), so a request's stream does not depend on its
-neighbours either — but it does not replay the reference's ``jax.random``
-bits.  Speculative decoding is not ported yet (it needs the paged verify
-kernel, ROADMAP.md Queue B).
+Every per-slot op in the decode and verify steps is row-independent, so a
+request's token stream is bitwise-identical whether it is served alone or
+next to arbitrary other requests.  Greedy decoding is ``argmax``.
+Temperature sampling draws Gumbel noise from a ``torch.Generator`` seeded
+from (request seed, emitted position), so a request's stream does not
+depend on its neighbours either — but it does not replay the reference's
+``jax.random`` bits.  A verify window's position t draws from the stream of
+emitted position ``generated + t``, the draw the non-spec loop makes there,
+so a sampled spec stream replays the non-spec stream token for token.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-125m \
-        --engine --batch 8 --prompt-len 32 --max-new 16 [--device cpu --smoke]
+        --engine --batch 8 --prompt-len 32 --max-new 16 [--spec-decode] \
+        [--device cpu --smoke]
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -82,6 +93,27 @@ class _Live:
     generated: int = 0
     budget: int = 0
     truncated: bool = False
+    history: list = field(default_factory=list)
+
+
+def prompt_lookup_draft(history, draft_len: int, max_ngram: int = 3) -> list:
+    """Model-free prompt-lookup drafter (PLD / n-gram speculation).
+
+    Finds the longest n-gram (n <= ``max_ngram``) ending the history that
+    also occurred earlier, preferring the most recent earlier occurrence,
+    and proposes up to ``draft_len`` of the tokens that followed it.  A pure
+    function of the request's own history, so the engine's solo == mixed
+    identity survives speculation.  Returns [] when no n-gram repeats (the
+    engine then verifies a 1-token window, which is a decode step)."""
+    L = len(history)
+    if L < 2 or draft_len <= 0:
+        return []
+    for n in range(min(max_ngram, L - 1), 0, -1):
+        suffix = history[L - n:]
+        for start in range(L - n - 1, -1, -1):
+            if history[start:start + n] == suffix:
+                return list(history[start + n:start + n + draft_len])
+    return []
 
 
 class SlotScheduler:
@@ -232,9 +264,13 @@ class ServeEngine:
         temperature: float = 0.0,
         seed: int = 0,
         detokenize=None,
+        spec_decode: bool = False,
+        draft_len: int = 4,
         device: str | torch.device = "cuda",
     ):
         assert page_size > 0 and page_size & (page_size - 1) == 0, page_size
+        if spec_decode and draft_len < 1:
+            raise ValueError(f"draft_len must be >= 1, got {draft_len}")
         self.cfg = cfg
         self.model = build_model(cfg, device)
         self.device = self.model.device
@@ -247,6 +283,8 @@ class ServeEngine:
         self.page_size = page_size
         self.eos_id = eos_id
         self.temperature = temperature
+        self.spec_decode = spec_decode
+        self.draft_len = draft_len if spec_decode else 0
         self._detok = detokenize or (lambda t: f"<{t}>")
 
         bucket_cap = page_size
@@ -276,8 +314,9 @@ class ServeEngine:
 
     def warmup(self) -> None:
         """Build the kernels, allocate the page pool and run every prefill
-        bucket and one decode step once.  The decode step runs with every
-        slot free, so its writes land on the null page."""
+        bucket and one decode step (with ``spec_decode``, one verify step)
+        once.  That step runs with every slot free, so its writes land on
+        the null page."""
         if self.cache is not None:
             return
         if self.device.type == "cuda":
@@ -292,7 +331,8 @@ class ServeEngine:
         S, P = self.n_slots, self.pages_per_slot
         zeros = torch.zeros((S,), dtype=torch.int32, device=dev)
         tables = torch.zeros((S, P), dtype=torch.int32, device=dev)
-        self.model.decode_step_paged(self.params, self.cache, tables, zeros, zeros)
+        window = torch.zeros((S, self.draft_len + 1), dtype=torch.int32, device=dev)
+        self.model.verify_step_paged(self.params, self.cache, tables, zeros, window)
         _sync(dev)
 
     # ------------------------------------------------------------------
@@ -304,17 +344,20 @@ class ServeEngine:
                 return bkt
         raise ValueError(f"prompt length {n} exceeds the largest bucket {self.buckets[-1]}")
 
-    def _sample(self, logits: torch.Tensor, rows: list[int], lives: list[_Live]) -> list:
-        """Next token for each listed row: greedy argmax, or a draw from the
-        request's own (seed, emitted position) stream."""
+    def _sample(self, logits: torch.Tensor, slots: list[int], lives: list[_Live]):
+        """[len(slots), T] next tokens over a window (``logits`` [S, T, V]):
+        greedy argmax, or window position t of a slot drawn from its
+        request's own (seed, emitted position) stream at ``generated + t``."""
         if self.temperature <= 0.0:
             toks = torch.argmax(logits, dim=-1).cpu().numpy()
-            return [int(toks[r]) for r in rows]
-        host = logits[rows].float().cpu()  # one copy per step, not per slot
-        return [
-            _gumbel_argmax(host[i], self.temperature, _stream_seed(lv.req.seed, lv.generated))
+            return toks[slots]
+        host = logits[slots].float().cpu()  # one copy per step
+        T = host.shape[1]
+        return np.asarray([
+            [_gumbel_argmax(host[i, t], self.temperature,
+                            _stream_seed(lv.req.seed, lv.generated + t)) for t in range(T)]
             for i, lv in enumerate(lives)
-        ]
+        ], np.int64).reshape(len(lives), T)
 
     def _admit(self, req: Request, worker, live: dict, fed: np.ndarray, clock):
         """Prefill + first sample for ``req``; returns (first-token time,
@@ -333,9 +376,11 @@ class ServeEngine:
         self.model.insert_pages(
             self.cache, k_new, v_new, torch.from_numpy(page_ids.astype(np.int64)).to(self.device)
         )
-        lv = _Live(req=req, slot=slot, budget=budget, truncated=budget < req.max_new)
-        tok0 = self._sample(logits, [0], [lv])[0]
+        lv = _Live(req=req, slot=slot, budget=budget, truncated=budget < req.max_new,
+                   history=[int(t) for t in req.tokens])
+        tok0 = int(self._sample(logits[:, None], [0], [lv])[0, 0])
         lv.generated = 1
+        lv.history.append(tok0)
         t_first = clock()
         worker.put(req.id, tok0, t_first)
         fed[slot] = tok0
@@ -365,6 +410,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         step = 0
         emitted = 0
+        decode_emitted = spec_proposed = spec_accepted = 0
 
         def clock():
             return float(step) if step_clock else time.perf_counter() - t0
@@ -384,29 +430,16 @@ class ServeEngine:
                 else:
                     time.sleep(1e-4)
                 continue
-            logits, self.cache = self.model.decode_step_paged(
-                self.params,
-                self.cache,
-                torch.from_numpy(sched.block_tables.copy()).to(dev),
-                torch.from_numpy(sched.lengths.copy()).to(dev),
-                torch.from_numpy(fed.copy()).to(dev),
-            )
+            tables = torch.from_numpy(sched.block_tables.copy()).to(dev)
+            lengths = torch.from_numpy(sched.lengths.copy()).to(dev)
             slots = list(live)
-            toks = self._sample(logits, slots, [live[s] for s in slots])
+            drafts, toks = self._verify(tables, lengths, fed, live, slots)
             step += 1
-            t_now = clock()
-            for slot, tok in zip(slots, toks):
-                lv = live[slot]
-                lv.generated += 1
-                sched.lengths[slot] += 1
-                worker.put(lv.req.id, tok, t_now)
-                emitted += 1
-                fed[slot] = tok
-                hit_eos = self.eos_id >= 0 and tok == self.eos_id
-                if hit_eos or lv.generated >= lv.budget:
-                    sched.evict(slot)
-                    del live[slot]
-                    fed[slot] = 0
+            n_em, n_prop, n_acc = self._accept(drafts, toks, fed, live, slots, worker, clock())
+            emitted += n_em
+            decode_emitted += n_em
+            spec_proposed += n_prop
+            spec_accepted += n_acc
         wall = time.perf_counter() - t0
         raw = worker.finish()
         results = {
@@ -441,10 +474,69 @@ class ServeEngine:
             "max_concurrent_decodes": self.n_slots,
             "page_size": self.page_size,
             "compile_count": self.compile_count,
-            "spec_decode": False,
+            "spec_decode": self.spec_decode,
             "device": str(dev),
         }
+        if self.spec_decode:
+            stats["draft_len"] = self.draft_len
+            stats["proposed_tokens"] = spec_proposed
+            stats["accepted_tokens"] = spec_accepted
+            stats["acceptance_rate"] = round(spec_accepted / max(spec_proposed, 1), 4)
+            stats["tok_per_verify"] = round(decode_emitted / max(step, 1), 3)
         return results, stats
+
+    def _verify(self, tables, lengths, fed, live: dict, slots: list):
+        """Draft and verify for the live ``slots``: returns ({slot: draft},
+        [len(slots), T] sampled tokens over each window).  Without
+        ``spec_decode`` every draft is empty and the window of one token is
+        a decode step."""
+        window = np.zeros((self.n_slots, self.draft_len + 1), np.int32)
+        drafts = {}
+        for slot in slots:
+            d = prompt_lookup_draft(live[slot].history, self.draft_len)
+            drafts[slot] = d
+            window[slot, 0] = fed[slot]
+            window[slot, 1:1 + len(d)] = d
+        logits, self.cache = self.model.verify_step_paged(
+            self.params, self.cache, tables, lengths, torch.from_numpy(window).to(self.device))
+        return drafts, self._sample(logits, slots, [live[s] for s in slots])
+
+    def _accept(self, drafts: dict, toks, fed, live: dict, slots: list, worker, t_now):
+        """Commit each slot's verified tokens; returns (tokens emitted,
+        drafts proposed, drafts accepted).  A slot accepts the longest draft
+        prefix the model re-derives, capped so the step's emissions fit the
+        request's budget; the sample after the last accepted draft is the
+        bonus token, so the slot emits accepted + 1 tokens, cut after an
+        EOS."""
+        sched = self.scheduler
+        n_em_all = proposed = accepted = 0
+        for i, slot in enumerate(slots):
+            lv, d = live[slot], drafts[slot]
+            emit_room = lv.budget - lv.generated
+            a = 0
+            while a < min(len(d), emit_room - 1) and int(toks[i, a]) == d[a]:
+                a += 1
+            emits = [int(toks[i, j]) for j in range(a + 1)]
+            if self.eos_id >= 0 and self.eos_id in emits:
+                emits = emits[:emits.index(self.eos_id) + 1]
+            n_em = len(emits)
+            proposed += len(d)
+            accepted += min(a, n_em - 1)
+            for tok in emits:
+                worker.put(lv.req.id, tok, t_now)
+            n_em_all += n_em
+            lv.history.extend(emits)
+            lv.generated += n_em
+            # the rejected tail's KV (past the last commit) is rolled back by
+            # this pointer alone, never copied out
+            sched.lengths[slot] += n_em
+            fed[slot] = emits[-1]
+            hit_eos = self.eos_id >= 0 and emits[-1] == self.eos_id
+            if hit_eos or lv.generated >= lv.budget:
+                sched.evict(slot)
+                del live[slot]
+                fed[slot] = 0
+        return n_em_all, proposed, accepted
 
 
 class BatchedServer:
@@ -545,9 +637,15 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--spec-decode",
         action="store_true",
-        help="speculative decoding: not ported yet (needs the paged verify kernel)",
+        help="speculative decoding (prompt-lookup draft + multi-token verify); "
+        "requires --engine",
     )
-    ap.add_argument("--draft-len", type=int, default=4, help="with --spec-decode")
+    ap.add_argument(
+        "--draft-len",
+        type=int,
+        default=4,
+        help="max draft tokens proposed per verify step (with --spec-decode)",
+    )
     ap.add_argument(
         "--device",
         default="cuda",
@@ -555,10 +653,10 @@ def main(argv=None) -> None:
         "PyTorch versions)",
     )
     args = ap.parse_args(argv)
-    if args.spec_decode:
+    if args.spec_decode and not args.engine:
         ap.error(
-            "--spec-decode is not ported yet: it needs the paged verify "
-            "attention kernel (ROADMAP.md Queue B)"
+            "--spec-decode requires --engine: the static-batch "
+            "BatchedServer has no draft/verify pipeline"
         )
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -574,6 +672,8 @@ def main(argv=None) -> None:
             page_size=args.page_size,
             eos_id=args.eos_id,
             temperature=args.temperature,
+            spec_decode=args.spec_decode,
+            draft_len=args.draft_len,
             device=args.device,
         )
         reqs = [

@@ -7,6 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch opt-125m --method subzo --adaptive-q           # a low-rank baseline
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch opt-125m --weight-quant lut4                   # quantized block leaves
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
 Build the model, draw the reference's initial params and ZO state from
@@ -15,7 +17,11 @@ step (the weight passes on the ``tezo_perturb`` / ``tezo_adam_update``
 kernels for the TeZO family, on ``noise_perturb`` / ``noise_update`` for
 the MeZO family, on ``tezo_perturb`` for LOZO and on ``subzo_perturb`` for
 SubZO, the forwards on the flash-attention kernel), with the losses left on
-the device and read once per log boundary.  On the card, every step after
+the device and read once per log boundary.  ``--weight-quant nf4|lut3|lut4``
+stores the transformer block matmul weights as packed LUT-quantized leaves
+(``core.quant``): their forwards run on the ``quant_matmul`` kernel, the
+TeZO family perturbs and updates their r-vector ``acc`` and the MeZO family
+their dense ``nacc`` buffer.  On the card, every step after
 the first runs under ``torch.cuda.set_sync_debug_mode("error")``: a step
 that waited on the device would raise.  ``--adaptive-q`` grows q at a log
 boundary (``core.adaptive``), outside that guard, and rebuilds the step.
@@ -23,8 +29,8 @@ Prints the reference's JSON result (``final_eval_loss``, the final
 ``q_probes`` and the rest) without the history.
 
 Options whose modules are not ported raise and name their ROADMAP.md item:
-``--mesh``, ``--probe-parallel``, ``--ensemble``, ``--weight-quant``,
-``--rank-mode spectral`` and ``--pretrain-steps``.
+``--mesh``, ``--probe-parallel``, ``--ensemble``, ``--rank-mode spectral``
+and ``--pretrain-steps``.
 """
 
 from __future__ import annotations
@@ -54,16 +60,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue A item {item})")
 
 
-def _check_ported(*, mesh, probe_parallel, ensemble, straggler_prob, weight_quant,
-                  rank_mode, pretrain_steps, method) -> None:
+def _check_ported(*, mesh, probe_parallel, ensemble, straggler_prob, rank_mode,
+                  pretrain_steps, method) -> None:
     if mesh is not None:
         raise _not_ported("--mesh", "13")
     if probe_parallel:
         raise _not_ported("--probe-parallel", "13")
     if ensemble > 1 or straggler_prob > 0:
         raise _not_ported("--ensemble / --straggler-prob", "13")
-    if weight_quant != "none":
-        raise _not_ported("--weight-quant", "11")
     if rank_mode != "const":
         raise _not_ported(f"--rank-mode {rank_mode}", "4")
     if pretrain_steps > 0:
@@ -134,8 +138,8 @@ def train(
     final ``state`` with ``return_state``).  ``model_cfg`` replaces the
     registered config (a depth-cut model, say)."""
     _check_ported(mesh=mesh, probe_parallel=probe_parallel, ensemble=ensemble,
-                  straggler_prob=straggler_prob, weight_quant=weight_quant,
-                  rank_mode=rank_mode, pretrain_steps=pretrain_steps, method=method)
+                  straggler_prob=straggler_prob, rank_mode=rank_mode,
+                  pretrain_steps=pretrain_steps, method=method)
     cfg = model_cfg or (get_smoke_config(arch) if smoke else get_config(arch))
     model = build_model(cfg, device)
     dev = model.device
@@ -254,7 +258,10 @@ def main(argv=None) -> None:
     ap.add_argument("--rho", type=float, default=1e-3)
     ap.add_argument("--rank", type=int, default=24)
     ap.add_argument("--rank-mode", default="const", choices=["const", "spectral"])
-    ap.add_argument("--weight-quant", default="none", choices=["none", "nf4", "lut3", "lut4"])
+    ap.add_argument("--weight-quant", default="none", choices=["none", "nf4", "lut3", "lut4"],
+                    help="store transformer block weights as packed LUT-quantized leaves "
+                    "(core.quant.QuantLeaf), dequantized in-tile on the forward; TeZO and "
+                    "MeZO families only, no weight decay")
     ap.add_argument("--q-probes", type=int, default=1)
     ap.add_argument("--restore-mode", default="inplace",
                     choices=["inplace", "unchained", "exact"],

@@ -4,6 +4,9 @@
 numpy arrays, into the port's parameter dict: the same nested keys and the
 same stacked ``[L, ...]`` layout.  bf16 leaves cross as their uint16 bit
 patterns, so the bridge is exact and needs neither JAX nor ``ml_dtypes``.
+A reference ``QuantLeaf`` (its fields as numpy arrays, e.g. after
+``jax.device_get``, plus its meta fields) crosses as the port's
+``core.quant.QuantLeaf``, recognised by its fields, not its type.
 
 ``load_reference_checkpoint`` reads the reference checkpointer's on-disk
 layout (``arrays.npz`` keyed by leaf path plus ``manifest.json``) with numpy
@@ -56,10 +59,24 @@ def tensor_from_numpy(
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def quant_leaf_from_numpy(leaf: Any, device: torch.device | str = "cpu"):
+    """A reference QuantLeaf (any object with its fields) -> the port's."""
+    from repro_torch.core.quant import TENSOR_FIELDS, QuantLeaf
+
+    fields = {f: getattr(leaf, f) for f in TENSOR_FIELDS}
+    fields = {f: None if a is None else tensor_from_numpy(np.asarray(a), device)
+              for f, a in fields.items()}
+    return QuantLeaf(**fields, bits=int(leaf.bits), k_dim=int(leaf.k_dim),
+                     dtype_name=str(leaf.dtype_name), qmethod=str(leaf.qmethod))
+
+
 def params_from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
-    """Nested dict of numpy arrays -> nested dict of tensors (same keys)."""
+    """Nested dict of numpy arrays (reference QuantLeafs among them) ->
+    nested dict of tensors and QuantLeafs (same keys)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "codes") and hasattr(tree, "qmethod"):
+        return quant_leaf_from_numpy(tree, device)
     return tensor_from_numpy(np.asarray(tree), device)
 
 

@@ -1,6 +1,6 @@
 """Shared neural layers (counterpart of ``repro.models.layers``): norms,
-RoPE, attention (full / decode / paged decode), the GELU MLP and the
-cross-entropy loss.
+RoPE, attention (full / decode / paged decode / paged verify), the weight
+matmul (dense or quantized), the GELU MLP and the cross-entropy loss.
 Plain functions over tensors; softmax and norm math in f32, activations in
 the config dtype, as in the reference."""
 
@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.quant import QuantLeaf
 
 NEG_INF = -1e30
 
@@ -110,11 +112,38 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     return decode_attention(q[:, None], k, v, valid)[:, 0]
 
 
+def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, lengths):
+    """Port of the reference's XLA twin of the speculative-verify kernel,
+    built by folding the draft window into the slot axis: each (slot, t)
+    pair becomes a pseudo-slot sharing the slot's block-table row with
+    length ``lengths[s] + t`` (the causal intra-window mask), then the
+    :func:`paged_decode_attention_ref` math runs over the S·T pseudo-slots.
+    At T = 1 this is the decode twin's call.  Dead slots (length 0) keep
+    length 0 at every window position.  q [S,T,H,dh] -> [S,T,H,dh].  As with
+    the decode twin, nothing on the serving path calls this."""
+    S, T, H, dh = q.shape
+    bt_rep = torch.repeat_interleave(block_tables, T, dim=0)  # [S*T, P]
+    lens_t = torch.where((lengths > 0)[:, None],
+                         lengths[:, None] + torch.arange(T, device=q.device)[None, :], 0)
+    out = paged_decode_attention_ref(q.reshape(S * T, H, dh), k_pages, v_pages, bt_rep,
+                                     lens_t.reshape(-1).to(lengths.dtype))
+    return out.reshape(S, T, H, dh)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     """Paged-KV decode-attention entry point (``core.dispatch``)."""
     from repro_torch.core import dispatch
 
     return dispatch.decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths)
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, lengths):
+    """Multi-token speculative-verify attention over the paged KV cache
+    (``core.dispatch``): q [S,T,H,dh], window position t attends
+    ``kpos < lengths[s] + t``."""
+    from repro_torch.core import dispatch
+
+    return dispatch.verify_attention_fwd(q, k_pages, v_pages, block_tables, lengths)
 
 
 def attention(q, k, v, *, q_offset=0, chunked_min_seq=8192):
@@ -129,9 +158,17 @@ def attention(q, k, v, *, q_offset=0, chunked_min_seq=8192):
 # --------------------------------------------------------------------------
 
 
-def weight_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for a dense weight (quantized leaves are not ported yet).
-    Left to ``torch.matmul`` as the reference leaves it to XLA's dot."""
+def weight_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` where ``w`` is a dense matrix or a ``core.quant.QuantLeaf``.
+    The quantized branch routes through ``dispatch.quant_matmul_fwd`` (the
+    fused in-tile LUT-dequant kernel on the card, its plain version on the
+    CPU); the dense branch is left to ``torch.matmul`` as the reference
+    leaves it to XLA's dot.  Every weight-matmul site of the training
+    forward, prefill, decode and verify goes through here."""
+    if isinstance(w, QuantLeaf):
+        from repro_torch.core import dispatch
+
+        return dispatch.quant_matmul_fwd(x, w)
     if x.dtype != w.dtype:
         x, w = _promote(x, w)
     return torch.matmul(x, w)

@@ -67,6 +67,9 @@ class LM:
     def decode_step_paged(self, params, cache, block_tables, lengths, tokens):
         return self.impl.decode_step_paged(params, cache, block_tables, lengths, tokens)
 
+    def verify_step_paged(self, params, cache, block_tables, lengths, tokens):
+        return self.impl.verify_step_paged(params, cache, block_tables, lengths, tokens)
+
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> LM:
     return LM(cfg, device)

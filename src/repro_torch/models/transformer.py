@@ -5,9 +5,12 @@ Parameters keep the reference's stacked layout — one ``[L, ...]`` tensor
 per block leaf — and a plain Python loop over layers takes the place of
 ``lax.scan``.  Ported: opt-125m's dense block (no qkv bias, no qk-norm,
 full causal attention, the 2-matrix GELU FFN), the training forward and
-its ``loss_fn``, dense-cache prefill/decode and the paged serving paths.
-The reference's other block options, MoE, prefix ``embeds``, chunked
-cross-entropy and ``verify_step_paged`` are not ported yet (ROADMAP.md).
+its ``loss_fn``, dense-cache prefill/decode and the paged serving paths,
+speculative verify included.  Every weight matmul goes through
+``layers.weight_matmul``, so a block leaf may be a quantized
+``core.quant.QuantLeaf``.  The reference's other block options, MoE,
+prefix ``embeds`` and chunked cross-entropy are not ported yet
+(ROADMAP.md).
 
 The caches are updated in place (the reference returns new arrays): the
 paged pool is the serving engine's largest allocation and a copy per step
@@ -100,6 +103,8 @@ class TransformerLM:
 
     @staticmethod
     def _layer(params, i: int) -> dict:
+        """Layer ``i`` of every stacked block leaf (a QuantLeaf indexes each
+        of its tensors)."""
         return {name: w[i] for name, w in params["blocks"].items()}
 
     # ------------------------------------------------------------------
@@ -225,7 +230,8 @@ class TransformerLM:
         return cache
 
     def decode_step_paged(self, params, cache, block_tables, lengths, tokens):
-        """One decode token per slot against the paged KV pool.
+        """One decode token per slot against the paged KV pool:
+        :meth:`verify_step_paged` over a window of one token.
 
         ``tokens/lengths [S] int32`` — length is the count of kv positions
         already in the slot's pages, i.e. the new token's position; free
@@ -234,28 +240,65 @@ class TransformerLM:
         reference's capacity-clamped ``writable`` routing).  Every per-slot
         op is row-independent, which makes a request's token stream bitwise
         invariant to the other slots.  Returns (logits [S, V], cache)."""
+        logits, cache = self.verify_step_paged(params, cache, block_tables, lengths,
+                                               tokens[:, None])
+        return logits[:, 0], cache
+
+    def verify_step_paged(self, params, cache, block_tables, lengths, tokens):
+        """Score a T-token speculative window per slot in one forward.
+
+        ``tokens [S, T] int32``: window position 0 is the slot's committed
+        last token, 1 .. T-1 the draft proposals; ``lengths [S]`` is
+        position 0's kv write position (as in :meth:`decode_step_paged`).
+        All T KVs are written optimistically at lengths .. lengths+T-1 (a
+        rejected tail is rolled back by the engine's length pointer alone,
+        never copied), and window position t attends kpos < lengths+1+t
+        through the verify kernel, one launch per layer for the whole
+        window.  Writes at or past the slot's page capacity land on the
+        null page 0, so a window overhanging capacity never indexes past
+        the block table.
+
+        Every other op runs per window position on an [S, 1, D] slice,
+        exactly the shapes of a decode step: a GEMM at M = S·T rows may
+        take another cuBLAS algorithm than the decode step's M = S and
+        round a position's logits otherwise, which flips greedy ties (seen
+        on the H100 at full width in bf16).  Per position, window position
+        t is bitwise the decode step at length lengths + t (the verify
+        kernel's rows past their limit add exact zeros), which is what
+        keeps the engine's spec == non-spec tokens.  A one-token window
+        attends through the decode kernel, the verify kernel's instructions
+        at T = 1.  Returns (logits [S, T, V], cache)."""
         c = self.cfg
-        S = tokens.shape[0]
+        S, T = tokens.shape
         ps = cache["k"].shape[2]
         P = block_tables.shape[1]
-        x = params["embed"][tokens][:, None, :]  # [S, 1, D]
-        sin, cos = layers.rope_angles(lengths[:, None], c.head_dim, c.rope_theta)
+        pos = lengths[:, None] + torch.arange(T, device=tokens.device, dtype=lengths.dtype)
+        xs = [params["embed"][tokens[:, t]][:, None, :] for t in range(T)]  # [S, 1, D] each
+        rope = [layers.rope_angles(pos[:, t:t + 1], c.head_dim, c.rope_theta) for t in range(T)]
         active = lengths > 0
-        writable = active & (lengths < P * ps)
-        lp = torch.clamp(lengths // ps, 0, P - 1).long()
-        rows = torch.arange(S, device=tokens.device)
+        writable = active[:, None] & (pos < P * ps)
+        lp = torch.clamp(pos // ps, 0, P - 1).long()
+        rows = torch.arange(S, device=tokens.device)[:, None]
         phys = torch.where(writable, block_tables[rows, lp], 0).long()
-        off = (lengths % ps).long()
+        off = (pos % ps).long()
         attn_len = torch.where(active, lengths + 1, 0).to(torch.int32)
         for i in range(c.n_layers):
             p = self._layer(params, i)
             k_l, v_l = cache["k"][i], cache["v"][i]
-            q, k, v = self._qkv(p, x, sin, cos)
-            k_l[phys, off] = k[:, 0].to(k_l.dtype)
-            v_l[phys, off] = v[:, 0].to(v_l.dtype)
-            o = layers.paged_decode_attention(q[:, 0], k_l, v_l, block_tables, attn_len)
-            x = x + layers.weight_matmul(o.reshape(S, 1, -1), p["wo"])
-            x = x + self._ffn(p, x)
-        x = layers.rms_norm(x, params["final_norm"], c.norm_eps)
-        logits = layers.weight_matmul(x[:, 0, :], params["lm_head"])
-        return logits, cache
+            qkv = [self._qkv(p, x, sin, cos) for x, (sin, cos) in zip(xs, rope)]
+            q, k, v = qkv[0] if T == 1 else (torch.cat(parts, dim=1) for parts in zip(*qkv))
+            k_l[phys, off] = k.to(k_l.dtype)  # q, k, v [S, T, H | KV, dh]
+            v_l[phys, off] = v.to(v_l.dtype)
+            if T == 1:
+                o = layers.paged_decode_attention(q[:, 0], k_l, v_l, block_tables,
+                                                  attn_len)[:, None]
+            else:
+                o = layers.paged_verify_attention(q, k_l, v_l, block_tables, attn_len)
+            for t in range(T):
+                x = xs[t] + layers.weight_matmul(o[:, t].reshape(S, 1, -1).contiguous(),
+                                                 p["wo"])
+                xs[t] = x + self._ffn(p, x)
+        logits = [layers.weight_matmul(layers.rms_norm(x, params["final_norm"],
+                                                       c.norm_eps)[:, 0, :], params["lm_head"])
+                  for x in xs]
+        return torch.stack(logits, dim=1), cache

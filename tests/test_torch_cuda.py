@@ -27,11 +27,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import dispatch, quant
 from repro_torch.core.estimator import ZOConfig
 from repro_torch.core.zo_step import build_zo_train_step, init_zo_state
 from repro_torch.data import DataConfig, batch_at_step
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import quant_matmul as tqmm
 from repro_torch.kernels import subzo_perturb as tsub
 from repro_torch.kernels import tezo_adam as tadam
 from repro_torch.kernels import tezo_perturb as tpert
@@ -529,3 +531,170 @@ def test_mezo_adam_card_matches_cpu(cuda):
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     for name, w in g.params["blocks"].items():
         assert (w.cpu() - c.params["blocks"][name]).abs().max().item() <= 1e-5, name
+
+
+# --------------------------------------------------------------------------
+# speculative verify and quantized leaves
+# --------------------------------------------------------------------------
+
+VERIFY_CASES = [  # S, T, H, KV, dh, ps, pps, lengths
+    # opt-125m's heads, page 16: dead, mid-page, page-aligned, a window
+    # overhanging capacity (29 + 4 > 2 x 16) and a slot at capacity
+    (5, 5, 12, 12, 64, 16, 2, [0, 7, 16, 29, 32]),
+    (4, 2, 12, 12, 64, 16, 3, [1, 17, 0, 48]),
+    (3, 4, 8, 2, 32, 8, 3, [5, 24, 9]),  # GQA G = 4: 4 x 4 rows of 32
+    (2, 3, 4, 1, 40, 8, 2, [7, 13]),  # MQA, awkward head dim
+    # the spec path's shapes, over several 32-position chunks: row 0 masked
+    # out of a chunk row 4 reaches (30, 62, 95, 318), mid-chunk, and windows
+    # overhanging the 21 x 16 capacity (330, 336)
+    (8, 5, 12, 12, 64, 16, 21, [30, 62, 95, 200, 318, 330, 336, 0]),
+]
+
+
+@pytest.mark.parametrize("S,T,H,KV,dh,ps,pps,lengths", VERIFY_CASES)
+def test_verify_kernel_vs_plain(cuda, S, T, H, KV, dh, ps, pps, lengths):
+    """f32, bf16 and f32 q over a bf16 pool against the plain version; dead
+    slots exact zeros; each window position t equals a decode launch at
+    length + t (so the intra-window mask is live), and position 0 is
+    bitwise the decode kernel's; one launch per call."""
+    q1, kp, vp, bt, lens = _paged(cuda, S, H, KV, dh, ps, pps, lengths, seed=T + dh)
+    q = _randn((S, T, H, dh), cuda, 40 + T)
+    n = tdec.paged_verify_attention.launches
+    got = tdec.paged_verify_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert tdec.paged_verify_attention.launches == n + 1
+    want = tdec.paged_verify_attention_plain(q, kp, vp, bt, lens)
+    assert (got - want).abs().max().item() <= F32_ATOL
+    dead = lens == 0
+    assert torch.all(got[dead] == 0)
+    dec0 = tdec.paged_decode_attention(q[:, 0].contiguous(), kp, vp, bt, lens)
+    assert torch.equal(got[:, 0], dec0)
+    for t in range(1, T):
+        dec = tdec.paged_decode_attention(q[:, t].contiguous(), kp, vp, bt,
+                                          torch.where(dead, 0, lens + t).to(torch.int32))
+        assert (got[:, t] - dec).abs().max().item() <= 1e-6, t
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    got_b = tdec.paged_verify_attention(qb, kb, vb, bt, lens)
+    assert _bf16_ok(got_b, tdec.paged_verify_attention_plain(qb.float(), kb.float(),
+                                                             vb.float(), bt, lens))
+    got_m = tdec.paged_verify_attention(q, kb, vb, bt, lens)
+    want_m = tdec.paged_verify_attention_plain(q, kb, vb, bt, lens)
+    assert (got_m - want_m).abs().max().item() <= F32_ATOL
+
+
+def test_verify_t1_bitwise_decode_kernel(cuda):
+    """A one-token window is the decode kernel, bit for bit, in f32 and
+    bf16, at opt-125m's heads."""
+    q, kp, vp, bt, lens = _paged(cuda, 8, 12, 12, 64, 16, 20,
+                                 [0, 1, 16, 17, 250, 31, 0, 320], seed=3)
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dt) for x in (q, kp, vp))
+        win = tdec.paged_verify_attention(qd[:, None].contiguous(), kd, vd, bt, lens)
+        assert torch.equal(win[:, 0], tdec.paged_decode_attention(qd, kd, vd, bt, lens))
+
+
+def test_verify_kernel_refuses_oversized_window(cuda):
+    """T * G * dh past the kernel's 1024 register elements raises; it is
+    never truncated."""
+    q, kp, vp, bt, lens = _paged(cuda, 2, 4, 1, 64, 8, 2, [3, 5], seed=1)
+    qw = _randn((2, 5, 4, 64), cuda, 2)  # 5 x 4 rows x 64 = 1280
+    with pytest.raises(ValueError, match="register elements"):
+        tdec.paged_verify_attention(qw, kp, vp, bt, lens)
+
+
+QMM_CASES = [  # scheme, M, K, N
+    ("nf4", 37, 96, 80), ("lut3", 129, 200, 72), ("lut4", 64, 768, 130),
+    ("lut3", 1, 768, 768), ("lut4", 300, 3072, 96),
+]
+
+
+@pytest.mark.parametrize("scheme,M,K,N", QMM_CASES)
+def test_quant_matmul_kernel_vs_plain(cuda, scheme, M, K, N):
+    """Ragged M and N, K padded to 128 or 640, a nonzero acc; the same
+    through dispatch with ``nacc``."""
+    w = _randn((K, N), cuda, 1, 0.1)
+    leaf = quant.quantize_leaf(w, scheme=scheme, rank=8, key=(1, 2), path="['w']",
+                               with_nacc=True)
+    # xu @ qvᵀ about a third of the dequantized product: both must be right
+    leaf = leaf.replace(acc=_randn((8,), cuda, 2, 0.01), nacc=_randn((K, N), cuda, 3, 0.01))
+    x = _randn((M, K), cuda, 4, 1.0)
+    lut = quant.scaled_lut(leaf)
+    xu = x @ (leaf.qu * leaf.acc)
+    n0 = tqmm.quant_matmul.launches
+    got = tqmm.quant_matmul(x, leaf.codes, lut, xu, leaf.qv, bits=leaf.bits)
+    torch.cuda.synchronize()
+    assert tqmm.quant_matmul.launches == n0 + 1
+    want = tqmm.quant_matmul_plain(x, leaf.codes, lut, xu, leaf.qv, bits=leaf.bits)
+    tol = 2e-5 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    no_delta = tqmm.quant_matmul_plain(x, leaf.codes, lut, torch.zeros_like(xu), leaf.qv,
+                                       bits=leaf.bits)
+    assert (no_delta - want).abs().max().item() > 100 * tol  # the check sees xu @ qvᵀ
+    xb = x.to(torch.bfloat16)
+    got_b = tqmm.quant_matmul(xb, leaf.codes, lut, xu, leaf.qv, bits=leaf.bits)
+    assert got_b.dtype == torch.bfloat16
+    assert _bf16_ok(got_b, tqmm.quant_matmul_plain(xb.float(), leaf.codes, lut, xu, leaf.qv,
+                                                   bits=leaf.bits))
+    fwd = dispatch.quant_matmul_fwd(x, leaf)
+    ref = dispatch._quant_matmul_ref(x, leaf)
+    assert (fwd - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("method", ["tezo_adam", "mezo_adam"])
+def test_quantized_training_on_card(cuda, method):
+    """Three lut4 steps of the smoke model: chained == unchained bitwise on
+    the card, and the card's losses within 1e-4 relative of the CPU's; the
+    forward runs on quant_matmul (6 quantized leaves x 2 layers per forward)."""
+    def run(dev, mode):
+        model = build_model(get_smoke_config("opt-125m"), dev)
+        zc = ZOConfig(method=method, q_probes=2, restore_mode=mode, rank=8, lr=1e-2,
+                      weight_quant="lut4")
+        state = init_zo_state(model.init(PRNGKey(0)), zc)
+        step = build_zo_train_step(model.loss_fn, zc)
+        data = DataConfig(seq_len=32, global_batch=4, vocab_size=256)
+        losses = []
+        for s in range(3):
+            batch = {k: torch.from_numpy(x).to(dev) for k, x in batch_at_step(data, s).items()}
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        return state, losses
+
+    n0 = tqmm.quant_matmul.launches
+    a, la = run(cuda, "inplace")
+    # 3 steps x (2q forwards) x 2 layers x 6 quantized leaves
+    assert tqmm.quant_matmul.launches - n0 == 3 * 4 * 2 * 6
+    b, lb = run(cuda, "unchained")
+    assert la == lb
+    fb = dict(flatten_with_path(b))
+    for path, t in flatten_with_path(a):
+        assert (torch.equal(t, fb[path]) if isinstance(t, torch.Tensor)
+                else np.array_equal(t, fb[path])), path
+    _, lc = run(torch.device("cpu"), "inplace")
+    np.testing.assert_allclose(la, lc, rtol=1e-4)
+
+
+def test_verify_window_is_bitwise_decode_steps_on_card(cuda):
+    """The smoke model in bf16 on the card: each window position's logits
+    are bitwise the decode step's at its length (the verify step runs the
+    decode step's GEMM shapes per position), so spec and non-spec greedy
+    streams agree."""
+    cfg = get_smoke_config("opt-125m").reduced(dtype="bfloat16")
+    model = build_model(cfg, cuda)
+    params = model.init(PRNGKey(3))
+    bt = torch.tensor([[1, 2], [3, 4], [0, 0]], dtype=torch.int32, device=cuda)
+    cache = model.init_paged_cache(5, 8)
+    rng = np.random.default_rng(4)
+    for s, n in enumerate([6, 9]):
+        prompt = np.zeros((1, 16), np.int32)
+        prompt[0, :n] = rng.integers(2, 256, size=n)
+        _, k, v = model.prefill_paged(params, torch.from_numpy(prompt).to(cuda), n)
+        model.insert_pages(cache, k, v, bt[s].long())
+    lens = torch.tensor([6, 9, 0], dtype=torch.int32, device=cuda)
+    window = torch.from_numpy(rng.integers(2, 256, size=(3, 5)).astype(np.int32)).to(cuda)
+    n0 = tdec.paged_verify_attention.launches
+    ver, cache = model.verify_step_paged(params, cache, bt, lens, window)
+    assert tdec.paged_verify_attention.launches - n0 == cfg.n_layers
+    for t in range(5):
+        dec, _ = model.decode_step_paged(params, cache, bt, torch.where(lens > 0, lens + t, 0)
+                                         .to(torch.int32), window[:, t].contiguous())
+        assert torch.equal(ver[:2, t], dec[:2]), t

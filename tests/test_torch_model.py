@@ -248,7 +248,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.launch.train, repro_torch.core.zo_step\n"
         "import repro_torch.core.estimator, repro_torch.core.cpd\n"
         "import repro_torch.kernels.tezo_perturb, repro_torch.kernels.tezo_adam\n"
-        "import repro_torch.kernels.zo_noise\n"
+        "import repro_torch.kernels.zo_noise, repro_torch.core.quant\n"
+        "import repro_torch.kernels.quant_matmul, repro_torch.kernels.decode_attention\n"
         "import repro_torch.checkpoint.checkpointer, repro_torch.data.pipeline\n"
         "import repro_torch.utils.jax_random, repro_torch.utils.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
