@@ -14,6 +14,7 @@ CONFIG = ModelConfig(
     head_dim=64,
     d_ff=3072,
     vocab_size=50272,
+    activation="gelu",
 )
 
 SMOKE = CONFIG.reduced(

@@ -1,5 +1,6 @@
 """Compute dispatch: the one place that picks a lowering for the ZO leaf
-ops and the forward attention (counterpart of ``repro.core.dispatch``).
+ops, the forward attention and the selective scan (counterpart of
+``repro.core.dispatch``).
 
 There is no knob: the tensor's device decides.  On a CUDA tensor each
 kernel-backed op launches its hand-written kernel (or the wrapper raises —
@@ -51,6 +52,7 @@ from repro_torch.kernels.decode_attention import (paged_decode_attention,
                                                   paged_verify_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.tezo_adam import tezo_adam_update
 from repro_torch.kernels.subzo_perturb import subzo_perturb
 from repro_torch.kernels.tezo_perturb import add_scaled, lozo_chain_k, tezo_perturb
@@ -61,15 +63,17 @@ def attention_fwd(
     k: torch.Tensor,  # [B, T, KV, dh]
     v: torch.Tensor,  # [B, T, KV, dh]
     *,
+    window: int = 0,
     q_offset: int = 0,
     chunked_min_seq: int = 8192,
 ) -> torch.Tensor:
-    """Causal (GQA) prefill attention for one block."""
+    """Causal (GQA, sliding-window when ``window`` > 0) prefill attention
+    for one block."""
     if q.device.type == "cpu" and q.shape[1] < chunked_min_seq:
         from repro_torch.models import layers  # lazy: layers imports this module
 
-        return layers.full_attention(q, k, v, q_offset=q_offset)
-    return flash_attention(q, k, v, causal=True, q_offset=q_offset)
+        return layers.full_attention(q, k, v, window=window, q_offset=q_offset)
+    return flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
 
 
 def decode_attention_fwd(
@@ -94,6 +98,22 @@ def verify_attention_fwd(
     the T-token generalization of :func:`decode_attention_fwd`, on the same
     kernel (at T = 1 bitwise the decode path)."""
     return paged_verify_attention(q, k_pages, v_pages, block_tables, lengths)
+
+
+def selective_scan_fwd(
+    x: torch.Tensor,  # [B, S, D]
+    dt: torch.Tensor,  # [B, S, D] (softplus'd)
+    a: torch.Tensor,  # [D, N] (negative)
+    b: torch.Tensor,  # [B, S, N]
+    c: torch.Tensor,  # [B, S, N]
+    h0: torch.Tensor,  # [B, D, N] f32
+) -> tuple:
+    """Mamba-1 selective scan for one block: (y [B,S,D] f32, h_last).  The
+    caller adds the D∘x skip.  On the card the kernel runs at every S: the
+    reference sends S == 1 (a decode step) to its sequential XLA cell, as a
+    one-step TPU launch buys nothing, but here one launch replaces the
+    plain version's per-step elementwise launches."""
+    return selective_scan(x, dt, a, b, c, h0)
 
 
 # ---------------------------------------------------------------------------

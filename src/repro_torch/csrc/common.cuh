@@ -58,7 +58,12 @@ namespace tezo {
 // (tx, ty) owns rows ty*kTM .. +3 and columns tx*4 .. +3 and 64 + tx*4 .. +3.
 // The rank-r sum is staged through shared memory kRC factor columns at a
 // time, as f32 [j][row] and [j][col] so each step is three 16-byte loads.
-constexpr int kBM = 64, kBN = 128, kRC = 32;
+// A warp stages 32 rows of one rank column, except for an a-side loader
+// that sets kWarpPerRow (SubZO's U * Sigma, an r-term sum per value): there
+// a warp takes one row and kRC consecutive columns, so each term is one
+// broadcast read of U's row instead of 32 cache lines, and kPad keeps the
+// transposed stores to 4-way bank conflicts with 16-byte aligned rows.
+constexpr int kBM = 64, kBN = 128, kRC = 32, kPad = 4;
 constexpr int kTM = 4, kTN = 8;
 constexpr int kThreads = 256;
 
@@ -66,8 +71,8 @@ struct Tile {
   int m, n, r, row0, col0;
 };
 
-struct RankSmem {
-  float a[kRC][kBM];
+struct __align__(16) RankSmem {
+  float a[kRC][kBM + kPad];
   float b[kRC][kBN];
 };
 
@@ -103,28 +108,26 @@ __device__ __forceinline__ void store_tile(T* W, const float (&w)[kTM][kTN], con
   }
 }
 
-// acc[i][l] = sum_j a(row_i, j) * b(l, j) for j = 0 .. r-1 in ascending
-// order, one f32 fma per term, with b = v (kSquaredB: v * v) and a given by
-// the loader ``ALoad::a(u, aux, row, c0, j, r)`` for rank column c0 + j:
-// TeZO's u * tau (TauA<false>, aux = tau), its squared form (TauA<true>) or
-// SubZO's row of U * Sigma (subzo_perturb.cu, aux = Sigma in shared
-// memory).  Rows >= m and columns >= n read zeros.
-template <bool kSquaredB, typename ALoad>
-__device__ __forceinline__ void rank_product(float (&acc)[kTM][kTN],
-                                             const float* __restrict__ u,
-                                             const float* __restrict__ v,
-                                             const float* __restrict__ aux,
-                                             const Tile& t, RankSmem& sm) {
-#pragma unroll
-  for (int a = 0; a < kTM; ++a)
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) acc[a][c] = 0.f;
+// acc[i][l] += sum_j a(row_i, j) * b(l, j) for rank columns j = c_begin ..
+// c_end-1 in ascending order, one f32 fma per term, with b = v (kSquaredB:
+// v * v) and a given by the loader ``ALoad::a(u, aux, row, c0, j, r)`` for
+// rank column c0 + j: TeZO's u * tau (TauA<false>, aux = tau), its squared
+// form (TauA<true>) or SubZO's row of U * Sigma (subzo_perturb.cu, aux =
+// Sigma's staged columns).  Rows >= m and columns >= n read zeros.  A sum
+// split over consecutive column ranges is bitwise the sum over all of them.
+template <bool kSquaredB, typename ALoad, typename Aux>
+__device__ __forceinline__ void rank_product_cols(float (&acc)[kTM][kTN],
+                                                  const float* __restrict__ u,
+                                                  const float* __restrict__ v,
+                                                  const Aux& aux, const Tile& t,
+                                                  RankSmem& sm, int c_begin, int c_end) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int c0 = 0; c0 < t.r; c0 += kRC) {
-    const int jn = min(kRC, t.r - c0);
+  for (int c0 = c_begin; c0 < c_end; c0 += kRC) {
+    const int jn = min(kRC, c_end - c0);
     __syncthreads();  // the previous chunk has been read
     for (int idx = threadIdx.x; idx < kRC * kBM; idx += kThreads) {
-      const int i = idx % kBM, j = idx / kBM, row = t.row0 + i;
+      const int j = ALoad::kWarpPerRow ? idx % kRC : idx / kBM;
+      const int i = ALoad::kWarpPerRow ? idx / kRC : idx % kBM, row = t.row0 + i;
       float x = 0.f;
       if (j < jn && row < t.m) x = ALoad::a(u, aux, row, c0, j, t.r);
       sm.a[j][i] = x;
@@ -153,10 +156,24 @@ __device__ __forceinline__ void rank_product(float (&acc)[kTM][kTN],
   }
 }
 
+// acc = the whole rank-r product (rank_product_cols over columns 0 .. r-1).
+template <bool kSquaredB, typename ALoad, typename Aux>
+__device__ __forceinline__ void rank_product(float (&acc)[kTM][kTN],
+                                             const float* __restrict__ u,
+                                             const float* __restrict__ v, const Aux& aux,
+                                             const Tile& t, RankSmem& sm) {
+#pragma unroll
+  for (int a = 0; a < kTM; ++a)
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) acc[a][c] = 0.f;
+  rank_product_cols<kSquaredB, ALoad>(acc, u, v, aux, t, sm, 0, t.r);
+}
+
 // TeZO's a-side: u * tau (kSquared: (u * u) * tau), each factor product
 // rounded as the reference's elementwise products are.
 template <bool kSquared>
 struct TauA {
+  static constexpr bool kWarpPerRow = false;
   static __device__ __forceinline__ float a(const float* __restrict__ u,
                                             const float* __restrict__ tau, int row, int c0,
                                             int j, int r) {

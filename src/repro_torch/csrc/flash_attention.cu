@@ -6,11 +6,12 @@
 // Here the kv axis is a loop inside one CUDA block: one block per
 // (q-tile of 64 rows, head, batch row), 256 threads, four threads per query
 // row, each owning a quarter of the head dim (d = part + 4*i, so the four
-// read neighbouring shared-memory words).  Each 32-row K/V tile is staged
+// read neighbouring shared-memory words); at head dim 256, eight threads per
+// row and 32-row q-tiles.  Each 32-row K/V tile is staged
 // once in shared memory as f32 and reused by all 64 query rows; the score
 // tile lives in registers and never reaches device memory.  Tiles that the
 // causal mask or the window rule out for the whole q-tile are skipped;
-// positions >= T are masked, so S, T and dh need no padding.
+// positions >= T are masked, so S, T and dh (up to 256) need no padding.
 //
 // What bounds it on the H100: at the serving shapes (S <= 512, dh 64) the
 // bytes moved are small (q, k, v, o once: 4*S*H*dh elements) and the work is
@@ -24,23 +25,37 @@
 // every product, scores are dot * dh^-0.5, masked scores are -1e30, and
 // the output is acc / max(l, 1e-30) rounded once to the input type.  A
 // row's result depends only on that row's q and on k, v: no atomics, and
-// the four partial dot products are combined in a fixed butterfly order.
+// the partial dot products are combined in a fixed butterfly order.
 
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 32;   // kv rows per shared-memory tile
-constexpr int kTPR = 4;   // threads per query row
-constexpr int kThreads = kBQ * kTPR;
+constexpr int kThreads = 256;
+
+// kTPR: threads per query row, so kThreads / kTPR query rows per block.
+// kBK: kv rows per shared-memory tile.  Up to a head dim of 128, four
+// threads per row and 32-row tiles; the head-dim-256 instance takes eight
+// threads per row, so each thread's q and acc rows stay at 32 elements (at
+// four, 233 registers held one block per SM), and 16-row tiles, so its f32
+// K/V tiles (2 x 16 x 256 x 4 bytes) stay within the 48 KB of static shared
+// memory.
+template <int DHMAX>
+struct FlashShape {
+  static constexpr int kTPR = DHMAX <= 128 ? 4 : 8;
+  static constexpr int kBQ = kThreads / kTPR;
+  static constexpr int kBK = DHMAX <= 128 ? 32 : 16;
+};
 
 template <typename T, int DHMAX>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int S, int Tk, int H, int KV, int dh, int q_offset,
     int window, int causal, float scale) {
+  constexpr int kTPR = FlashShape<DHMAX>::kTPR;
+  constexpr int kBQ = FlashShape<DHMAX>::kBQ;
+  constexpr int kBK = FlashShape<DHMAX>::kBK;
   constexpr int DPT = DHMAX / kTPR;  // head-dim elements per thread
   __shared__ float ks[kBK][DHMAX];
   __shared__ float vs[kBK][DHMAX];
@@ -91,8 +106,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) dot = fmaf(qr[i], ks[j][part + kTPR * i], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+      for (int sh = 1; sh < kTPR; sh <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, sh);
       const int kpos = k_lo + j;
       bool allow = kpos < Tk;
       if (causal) allow = allow && kpos <= qpos;
@@ -130,25 +145,36 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
+template <typename T, int DHMAX>
+void launch_dh(const T* q, const T* k, const T* v, T* o, int B, int S, int Tk, int H, int KV,
+               int dh, int q_offset, int window, int causal, float scale,
+               cudaStream_t stream) {
+  constexpr int kBQ = FlashShape<DHMAX>::kBQ;
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  flash_fwd_kernel<T, DHMAX><<<grid, kThreads, 0, stream>>>(
+      q, k, v, o, S, Tk, H, KV, dh, q_offset, window, causal, scale);
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int S, int Tk, int H, int KV, int dh, int q_offset, int window,
                    int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  const dim3 block(kThreads);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   if (dh <= 32) {
-    flash_fwd_kernel<T, 32><<<grid, block, 0, stream>>>(
-        qp, kp, vp, op, S, Tk, H, KV, dh, q_offset, window, causal, scale);
+    launch_dh<T, 32>(qp, kp, vp, op, B, S, Tk, H, KV, dh, q_offset, window, causal, scale,
+                     stream);
   } else if (dh <= 64) {
-    flash_fwd_kernel<T, 64><<<grid, block, 0, stream>>>(
-        qp, kp, vp, op, S, Tk, H, KV, dh, q_offset, window, causal, scale);
+    launch_dh<T, 64>(qp, kp, vp, op, B, S, Tk, H, KV, dh, q_offset, window, causal, scale,
+                     stream);
   } else if (dh <= 128) {
-    flash_fwd_kernel<T, 128><<<grid, block, 0, stream>>>(
-        qp, kp, vp, op, S, Tk, H, KV, dh, q_offset, window, causal, scale);
+    launch_dh<T, 128>(qp, kp, vp, op, B, S, Tk, H, KV, dh, q_offset, window, causal, scale,
+                      stream);
+  } else if (dh <= 256) {
+    launch_dh<T, 256>(qp, kp, vp, op, B, S, Tk, H, KV, dh, q_offset, window, causal, scale,
+                      stream);
   } else {
     return cudaErrorInvalidValue;
   }

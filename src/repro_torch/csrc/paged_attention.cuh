@@ -12,8 +12,8 @@ namespace repro_torch {
 // kv_dtype (0 = f32, 1 = bf16), block_tables [S, P] and lengths [S] int32.
 // Window position t of slot s attends kpos < min(lengths[s] + t, P *
 // page_size); a slot of length 0 writes zeros.  Returns cudaErrorInvalidValue
-// for what the kernel does not take (T * G * dh padded past its register
-// budget, an unknown dtype pair), else cudaGetLastError() after the launch.
+// for what the kernel does not take (a head dim above 256, an unknown dtype
+// pair), else cudaGetLastError() after the launch.
 cudaError_t paged_window_attention(const void* q, const void* k_pages, const void* v_pages,
                                    const int* block_tables, const int* lengths, void* o,
                                    int S, int T, int H, int KV, int dh, int page_size,

@@ -10,18 +10,24 @@
 // Each block holds a 64 x 128 tile of W in registers as f32 for the whole
 // chain.  Per delta it stages Sigma_s in shared memory, forms its rows of
 // U * Sigma_s while staging the rank-r product's a-side (common.cuh
-// rank_product with the SigmaA loader: one fma per term over Sigma's rows in
-// ascending order), then sums that against V's columns as TeZO does.  Z and
-// U * Sigma never reach device memory; W is read once and written once per
-// chain.  Ragged edges (a vocabulary of 50272 rows, a [12, 768] norm at
-// r = 12) are masked, not padded.
+// rank_product_cols with the SigmaA loader: one fma per term over Sigma's
+// rows in ascending order), then sums that against V's columns as TeZO
+// does.  Sigma's r x r floats fit the shared buffer up to r = kMaxRank;
+// above it the delta runs over Sigma's columns in chunks of kMaxRank^2 / r,
+// each staged in turn, with Z accumulating in f32 registers across the
+// chunks (in the same ascending column order) before the delta's single
+// rounding.  Z and U * Sigma never reach device memory; W is read once and
+// written once per chain.  Ragged edges (a vocabulary of 50272 rows, a
+// [12, 768] norm at r = 12) are masked, not padded.
 //
 // What bounds it on the H100: as tezo_perturb, 2r f32 flops per element and
-// delta against 4 bytes of bf16 traffic per pass, plus U * Sigma's 2r^2
-// flops per row of each 128-column tile (about 2r^2 / 128 per element).
-// chip_smoke.py computes the bound.  U's rows are read from the L1/L2 cache
-// r times per tile row; staging them, tensor cores and vector accesses are
-// later work.
+// delta against 4 bytes of bf16 traffic per pass; the function needs U *
+// Sigma's 2r^2 flops once per row, which each 128-column tile recomputes for
+// its rows (about 2r^2 / 128 per element; chip_smoke.py's bound counts only
+// the once per row).  The staging puts a warp on one row of U and 32
+// consecutive columns of Sigma, so U's row is one broadcast read per term and
+// Sigma's reads are conflict-free.  Forming U * Sigma once per delta for the
+// whole leaf, and tensor cores, are later work.
 //
 // Numerics follow the reference's f32 accumulate: each delta is
 // round_W(d*w + sc*z) with the two products and the sum rounded separately
@@ -39,19 +45,30 @@ using tezo::kThreads;
 using tezo::kTM;
 using tezo::kTN;
 
-// The largest rank whose Sigma fits the shared buffer beside the rank
-// product's staging (16 KB + 24 KB, under the 48 KB of static shared memory).
+// Sigma's floats that fit the shared buffer beside the rank product's
+// staging (16 KB + 25 KB, under the 48 KB of static shared memory): all of
+// Sigma up to r = kMaxRank, else a chunk of its columns.
 constexpr int kMaxRank = 64;
+constexpr int kSigmaFloats = kMaxRank * kMaxRank;
+
+// Sigma's columns c_begin .. c_begin + width - 1, staged as [r][width].
+struct SigmaCols {
+  const float* sig;
+  int c_begin, width;
+};
 
 // a(row, c0 + j) = sum_k u[row, k] * sigma[k, c0 + j], k ascending, one fma
-// per term; sigma is the delta's [r][r] core in shared memory.
+// per term.
 struct SigmaA {
+  static constexpr bool kWarpPerRow = true;
   static __device__ __forceinline__ float a(const float* __restrict__ u,
-                                            const float* __restrict__ sigma, int row, int c0,
-                                            int j, int r) {
+                                            const SigmaCols& s, int row, int c0, int j,
+                                            int r) {
     const float* ur = u + static_cast<size_t>(row) * r;
+    const int col = c0 - s.c_begin + j;
     float acc = 0.f;
-    for (int k = 0; k < r; ++k) acc = fmaf(__ldg(ur + k), sigma[k * r + c0 + j], acc);
+#pragma unroll 4
+    for (int k = 0; k < r; ++k) acc = fmaf(__ldg(ur + k), s.sig[k * s.width + col], acc);
     return acc;
   }
 };
@@ -61,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) subzo_perturb_kernel(
     const T* w, T* out, const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ sigma, DeltaChain chain, int m, int n, int r) {
   __shared__ tezo::RankSmem sm;
-  __shared__ float sig[kMaxRank * kMaxRank];
+  __shared__ float sig[kSigmaFloats];
   const size_t b = blockIdx.z;
   const tezo::Tile t{m, n, r, static_cast<int>(blockIdx.y) * kBM,
                      static_cast<int>(blockIdx.x) * kBN};
@@ -69,15 +86,25 @@ __global__ void __launch_bounds__(kThreads) subzo_perturb_kernel(
   const size_t rr = static_cast<size_t>(r) * r;
   const float* ub = u + b * m * r;
   const float* vb = v + b * n * r;
+  const int cw = r <= kMaxRank ? r : kSigmaFloats / r;  // Sigma's columns per stage
   float wt[kTM][kTN];
   tezo::load_tile(wt, w + b * mn, t);
   for (int s = 0; s < chain.k; ++s) {
     const float* sg = sigma + (b * chain.k + s) * rr;
-    __syncthreads();  // the previous delta has read sig
-    for (int i = threadIdx.x; i < r * r; i += kThreads) sig[i] = sg[i];
-    __syncthreads();
     float z[kTM][kTN];
-    tezo::rank_product<false, SigmaA>(z, ub, vb, sig, t, sm);
+#pragma unroll
+    for (int a = 0; a < kTM; ++a)
+#pragma unroll
+      for (int c = 0; c < kTN; ++c) z[a][c] = 0.f;
+    for (int cb = 0; cb < r; cb += cw) {
+      const int width = min(cw, r - cb);
+      __syncthreads();  // the previous stage has read sig
+      for (int i = threadIdx.x; i < r * width; i += kThreads)
+        sig[i] = sg[static_cast<size_t>(i / width) * r + cb + i % width];
+      __syncthreads();
+      tezo::rank_product_cols<false, SigmaA>(z, ub, vb, SigmaCols{sig, cb, width}, t, sm, cb,
+                                             cb + width);
+    }
     tezo::apply_delta<T>(wt, z, chain.decay[s], chain.scale[s]);
   }
   tezo::store_tile(out + b * mn, wt, t);
@@ -96,13 +123,14 @@ int launch(const void* w, void* out, const float* u, const float* v, const float
 }  // namespace repro_torch
 
 // w, out: [B, m, n] (may be the same buffer); u [B, m, r], v [B, n, r] and
-// sigma [B, k, r, r] f32; dtype 0 = f32, 1 = bf16.  r above kMaxRank or a
-// chain longer than kMaxChain is cudaErrorInvalidValue.
+// sigma [B, k, r, r] f32; dtype 0 = f32, 1 = bf16.  r above kMaxRank^2 (no
+// column of Sigma would fit) or a chain longer than kMaxChain is
+// cudaErrorInvalidValue.
 extern "C" int subzo_perturb_fwd(const void* w, void* out, const float* u, const float* v,
                                  const float* sigma, repro_torch::DeltaChain chain, int B,
                                  int m, int n, int r, int dtype, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || m <= 0 || n <= 0 || r <= 0 || r > kMaxRank || chain.k < 1 ||
+  if (B <= 0 || m <= 0 || n <= 0 || r <= 0 || r > kSigmaFloats || chain.k < 1 ||
       chain.k > kMaxChain || B > 65535 || (m + tezo::kBM - 1) / tezo::kBM > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -102,6 +102,8 @@ _SIGNATURES = {
     "paged_decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     # the same with the window length T after S
     "paged_verify_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    # x, dt, a, b, c, h0, y, h_last, B, S, D, N, stream
+    "selective_scan_fwd": [_P] * 8 + [_I] * 4 + [_P],
     # x, codes, lut, xu, qv, out, M, K, Kw, N, r, bits, x dtype, stream
     "quant_matmul_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # w, out, u, v, tau, chain, B, m, n, r, dtype, stream

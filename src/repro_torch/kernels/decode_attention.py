@@ -9,18 +9,18 @@ tokens per slot, window position t reading ``kpos < lengths[s] + t`` (the
 slot's history plus the causal intra-window prefix), and the decode entry
 point (``csrc/paged_decode_attention.cu``) launches it with T = 1, so a
 T = 1 verify is bitwise a decode step, as in the reference.  One CUDA block
-per (slot, kv head) reads its own block-table row and length (the TPU
-kernel's scalar prefetch), loops over the positions the window reaches in
-chunks gathered through the table, masks the tail page, and serves the
-T * G query rows of the head together.  Every limit is clamped to the
+per (slot, kv head, block of query rows) reads its own block-table row and
+length (the TPU kernel's scalar prefetch), loops over the positions its
+rows reach in chunks gathered through the table, masks the tail page, and
+serves its rows of the head's T * G window rows together.  Every limit is clamped to the
 slot's ``pages_per_slot * page_size`` positions; a length-0 slot writes
 exact zeros.  On the H100 it is bound by the bytes of the live KV pages.
 See the source for the design.
 
 Unlike ``repro.kernels.ops`` the wrappers pad neither G nor dh.  The kernel
-keeps T * G * dh (dh padded to 32, 64 or 128) within 1024 register
-elements; the wrappers raise on a window that does not fit, never
-truncate it.
+holds 1024 / dh_pad query rows per block in registers (dh padded to 32,
+64, 128 or 256) and puts further rows of a wide window (T * G above that)
+in further blocks, so it takes any T and G and a head dim up to 256.
 
 Dead slots: the plain version here follows the kernel (exact zeros for a
 length-0 slot).  The reference's XLA twins
@@ -40,8 +40,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
-MAX_GROUP_ELEMS = 1024  # T * G * head dim padded to 32/64/128 (kernel registers)
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q dtype, page dtype) pairs the kernel takes: an f32 model keeps a bf16
 # cache, as the reference's ``decode_cache_dtype`` default does
@@ -90,10 +89,6 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
         raise ValueError(f"q {tuple(q.shape)} and pages {tuple(k_pages.shape)} disagree")
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM} is not supported")
-    dh_pad = 32 if dh <= 32 else 64 if dh <= 64 else 128
-    if T * (H // KV) * dh_pad > MAX_GROUP_ELEMS:
-        raise ValueError(f"T={T} window positions x G={H // KV} query rows of dh {dh} "
-                         f"exceed the kernel's {MAX_GROUP_ELEMS} register elements")
     if block_tables.shape[0] != S or lengths.shape != (S,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {S} slots")

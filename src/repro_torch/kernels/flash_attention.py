@@ -5,13 +5,15 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 (through ``repro.kernels.ops.flash_attention``).  The kernel is
 ``csrc/flash_attention.cu``: one CUDA block per (64-row q-tile, head, batch
 row) loops over 32-row K/V tiles staged in shared memory, with the
-online-softmax state (m, l, acc) in f32 registers.  On the H100 its work is
+online-softmax state (m, l, acc) in f32 registers (32-row q-tiles and
+16-row K/V tiles at a head dim above 128).  On the H100 its work is
 the two attention products, run here as f32 FMAs on the CUDA cores (not the
 tensor cores), so the operations bound it; the score tile never reaches
 device memory.  See the source for the design.
 
 Unlike ``repro.kernels.ops`` the wrapper pads nothing: the kernel masks
-kpos >= T and rows >= S itself, and takes any dh <= 128.
+kpos >= T and rows >= S itself, and takes any dh <= 256 (the repo's
+largest config, paligemma-3b, has 256).
 
 On a CPU tensor :func:`flash_attention` runs :func:`flash_attention_plain`;
 on a CUDA tensor it launches the kernel or raises.
@@ -24,7 +26,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

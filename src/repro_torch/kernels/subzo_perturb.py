@@ -14,9 +14,11 @@ Replaces the TPU kernel ``repro/kernels/zo_noise.py::subzo_perturb``
 ``csrc/subzo_perturb.cu``: one launch per leaf over (column tiles, row
 tiles, batch index), W held in registers for the whole chain; per delta the
 block forms its rows of U·Σ_s in shared memory and sums them against V's
-columns, so neither Z nor U·Σ reaches device memory.  It takes r up to
-``MAX_RANK``.  It writes in place unless ``out`` names another buffer of W's
-shape.
+columns, so neither Z nor U·Σ reaches device memory.  Σ fits shared
+memory whole up to r = 64; above that the kernel stages it in column
+chunks and accumulates Z across them in f32 before each delta's one
+rounding, up to r = ``MAX_RANK``.  It writes in place unless ``out`` names
+another buffer of W's shape.
 
 On a CPU tensor :func:`subzo_perturb` runs :func:`subzo_perturb_plain`; on a
 CUDA tensor it launches the kernel or raises.
@@ -35,7 +37,7 @@ from repro_torch.kernels.tezo_perturb import (
     check_factors,
 )
 
-MAX_RANK = 64  # csrc/subzo_perturb.cu kMaxRank
+MAX_RANK = 4096  # csrc/subzo_perturb.cu kSigmaFloats: one column of Σ per stage
 
 
 def subzo_perturb_plain(w, u, v, sigmas, scales, decay=None, out=None):

@@ -38,16 +38,25 @@ static-batch driver it is checked against (counterpart of
 Every per-slot op in the decode and verify steps is row-independent, so a
 request's token stream is bitwise-identical whether it is served alone or
 next to arbitrary other requests.  Greedy decoding is ``argmax``.
-Temperature sampling draws Gumbel noise from a ``torch.Generator`` seeded
-from (request seed, emitted position), so a request's stream does not
-depend on its neighbours either — but it does not replay the reference's
-``jax.random`` bits.  A verify window's position t draws from the stream of
-emitted position ``generated + t``, the draw the non-spec loop makes there,
-so a sampled spec stream replays the non-spec stream token for token.
+Temperature sampling replays the reference's ``jax.random.categorical``
+(``utils.jax_random``) on the logits' device: the draw for a request's emitted
+position p is keyed ``fold_in(threefry_key(seed), p)``, so a request's
+stream does not depend on its neighbours either, and its tokens are the
+reference's for equal logits, on the card as on the CPU.  A verify
+window's position t draws with the key of emitted position
+``generated + t``, the draw the non-spec loop makes there, so a sampled
+spec stream replays the non-spec stream token for token.
+
+``BatchedServer`` serves every family with ``prefill`` / ``decode_step``
+(the dense and the hybrid ones); ``ServeEngine`` takes only models with
+the paged decode path, and raises for the hybrid family as the reference
+does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-125m \
         --engine --batch 8 --prompt-len 32 --max-new 16 [--spec-decode] \
         [--device cpu --smoke]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        [--device cpu --smoke]                # BatchedServer
 """
 
 from __future__ import annotations
@@ -229,18 +238,23 @@ class _DetokenizeWorker(threading.Thread):
         return self.results
 
 
-def _stream_seed(seed: int, position: int) -> int:
-    """Seed of the generator for one (request, emitted position) draw."""
-    return ((seed & 0xFFFFFFFF) << 32) | (position & 0xFFFFFFFF)
+def threefry_key(seed: int) -> tuple[int, int]:
+    """The raw Threefry key of a request's ``seed`` (the reference's
+    ``_threefry_key``: the seed's high and low 32-bit words)."""
+    return (seed >> 32) & jax_random.MASK, seed & jax_random.MASK
 
 
-def _gumbel_argmax(row: torch.Tensor, temperature: float, seed: int) -> int:
-    """One categorical draw from ``softmax(row / temperature)`` (``row``: f32
-    logits on the CPU) by the Gumbel-max trick, with noise from a CPU
-    generator seeded by ``seed`` — the same draw on every device."""
-    g = torch.Generator().manual_seed(seed)
-    u = torch.rand(row.shape[-1], generator=g)
-    return int(torch.argmax(row / temperature - torch.log(-torch.log(u))))
+def _sample_rows(logits: torch.Tensor, temperature: float, keys) -> np.ndarray:
+    """``jax.random.categorical(key, row / temperature)`` for every row of
+    ``logits`` [R, V] on the logits' device, row i keyed ``keys[i]`` ([R,
+    2]), or one draw of the whole [R, V] under one key.  The division runs
+    in the logits' dtype with the temperature cast to it, as the
+    reference's weakly typed ``row / temperature``; only the R token ids
+    leave the device."""
+    logits = logits.detach()
+    t = torch.tensor(temperature, dtype=logits.dtype).float()
+    scaled = (logits.float() / t).to(logits.dtype)
+    return jax_random.categorical(keys, scaled).cpu().numpy()
 
 
 def _sync(device: torch.device) -> None:
@@ -273,6 +287,11 @@ class ServeEngine:
             raise ValueError(f"draft_len must be >= 1, got {draft_len}")
         self.cfg = cfg
         self.model = build_model(cfg, device)
+        if not self.model.supports_paged_decode:
+            raise ValueError(
+                f"family {cfg.family!r} has no paged decode path; use "
+                "BatchedServer for the recurrent families"
+            )
         self.device = self.model.device
         self.params = (
             params
@@ -346,18 +365,17 @@ class ServeEngine:
 
     def _sample(self, logits: torch.Tensor, slots: list[int], lives: list[_Live]):
         """[len(slots), T] next tokens over a window (``logits`` [S, T, V]):
-        greedy argmax, or window position t of a slot drawn from its
-        request's own (seed, emitted position) stream at ``generated + t``."""
+        greedy argmax, or window position t of a slot drawn with its
+        request's key folded with emitted position ``generated + t``."""
         if self.temperature <= 0.0:
             toks = torch.argmax(logits, dim=-1).cpu().numpy()
             return toks[slots]
-        host = logits[slots].float().cpu()  # one copy per step
-        T = host.shape[1]
-        return np.asarray([
-            [_gumbel_argmax(host[i, t], self.temperature,
-                            _stream_seed(lv.req.seed, lv.generated + t)) for t in range(T)]
-            for i, lv in enumerate(lives)
-        ], np.int64).reshape(len(lives), T)
+        rows = logits[slots]
+        T = rows.shape[1]
+        keys = [jax_random.fold_in(threefry_key(lv.req.seed), lv.generated + t)
+                for lv in lives for t in range(T)]
+        toks = _sample_rows(rows.reshape(len(lives) * T, -1), self.temperature, keys)
+        return toks.astype(np.int64).reshape(len(lives), T)
 
     def _admit(self, req: Request, worker, live: dict, fed: np.ndarray, clock):
         """Prefill + first sample for ``req``; returns (first-token time,
@@ -541,7 +559,8 @@ class ServeEngine:
 
 class BatchedServer:
     """Static-batch driver: one prefill, lockstep decode, rows frozen at
-    EOS.  Kept as the engine's oracle."""
+    EOS.  Kept as the engine's oracle and for the recurrent (hybrid) family
+    the paged engine does not cover."""
 
     def __init__(self, cfg, params=None, max_len: int = 512, seed: int = 0,
                  device: str | torch.device = "cuda"):
@@ -576,7 +595,8 @@ class BatchedServer:
         # Finished rows are frozen: their emitted token is pinned to eos_id
         # (pad 0 without EOS), and that pinned token feeds the next step.
         fill = eos_id if eos_id >= 0 else 0
-        tok = self._sample(logits, temperature, _stream_seed(seed, 0))
+        key = jax_random.PRNGKey(seed)
+        tok = self._sample(logits, temperature, key)
         ttft_s = time.perf_counter() - t0
         t1 = time.perf_counter()
         for i in range(max_new_tokens):
@@ -589,7 +609,8 @@ class BatchedServer:
             logits, cache = self.model.decode_step(
                 self.params, cache, torch.from_numpy(emitted).to(dev)
             )
-            tok = self._sample(logits, temperature, _stream_seed(seed, i + 1))
+            key = jax_random.fold_in(key, i)
+            tok = self._sample(logits, temperature, key)
         decode_s = time.perf_counter() - t1
         tokens = np.stack(out, axis=1)
         live_total = int(live.sum())
@@ -603,13 +624,12 @@ class BatchedServer:
         return tokens, stats
 
     @staticmethod
-    def _sample(logits, temperature, seed) -> np.ndarray:
+    def _sample(logits, temperature, key) -> np.ndarray:
+        """Greedy argmax, or the reference's ``categorical(key, logits /
+        temperature)`` over the whole [B, V] batch under one key."""
         if temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-        g = torch.Generator().manual_seed(seed)
-        u = torch.rand(logits.shape, generator=g)
-        z = logits.float().cpu() / temperature - torch.log(-torch.log(u))
-        return torch.argmax(z, dim=-1).to(torch.int32).numpy()
+        return _sample_rows(logits, temperature, key).astype(np.int32)
 
 
 def main(argv=None) -> None:

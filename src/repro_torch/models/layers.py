@@ -1,6 +1,7 @@
 """Shared neural layers (counterpart of ``repro.models.layers``): norms,
 RoPE, attention (full / decode / paged decode / paged verify), the weight
-matmul (dense or quantized), the GELU MLP and the cross-entropy loss.
+matmul (dense or quantized), the gated MLP (swiglu, or the 2-matrix gelu
+FFN) and the cross-entropy loss.
 Plain functions over tensors; softmax and norm math in f32, activations in
 the config dtype, as in the reference."""
 
@@ -63,9 +64,10 @@ def _promote(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return a.to(dt), b.to(dt)
 
 
-def full_attention(q, k, v, *, q_offset: int = 0):
-    """Materialized-scores causal attention (S² memory).  q [B,S,H,dh],
-    k/v [B,T,KV,dh].  Products run in the input dtype, as the reference's."""
+def full_attention(q, k, v, *, window: int = 0, q_offset: int = 0):
+    """Materialized-scores causal attention (S² memory), sliding-window when
+    ``window`` > 0 (kpos > qpos - window).  q [B,S,H,dh], k/v [B,T,KV,dh].
+    Products run in the input dtype, as the reference's."""
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -74,7 +76,10 @@ def full_attention(q, k, v, *, q_offset: int = 0):
     s = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
     qpos = torch.arange(S, device=q.device) + q_offset
     kpos = torch.arange(T, device=q.device)
-    s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+    allow = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        allow = allow & (qpos[:, None] - kpos[None, :] < window)
+    s = torch.where(allow, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", p, v)
     return out.reshape(B, S, H, dh)
@@ -146,11 +151,12 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, lengths):
     return dispatch.verify_attention_fwd(q, k_pages, v_pages, block_tables, lengths)
 
 
-def attention(q, k, v, *, q_offset=0, chunked_min_seq=8192):
+def attention(q, k, v, *, window=0, q_offset=0, chunked_min_seq=8192):
     """Forward-attention entry point (``core.dispatch``)."""
     from repro_torch.core import dispatch
 
-    return dispatch.attention_fwd(q, k, v, q_offset=q_offset, chunked_min_seq=chunked_min_seq)
+    return dispatch.attention_fwd(q, k, v, window=window, q_offset=q_offset,
+                                  chunked_min_seq=chunked_min_seq)
 
 
 # --------------------------------------------------------------------------
@@ -174,11 +180,19 @@ def weight_matmul(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
-def gelu_mlp(x, w_up, w_down):
-    """The classic 2-matrix FFN (OPT style): the ``activation="gelu"``
-    branch of the reference's ``gated_mlp``."""
-    a = F.gelu(weight_matmul(x, w_up).float(), approximate="tanh").to(x.dtype)
-    return weight_matmul(a, w_down)
+def gated_mlp(x, w_gate, w_up, w_down, activation="swiglu"):
+    """The reference's ``gated_mlp``: ``act(x @ w_gate) * (x @ w_up) @
+    w_down`` with the activation in f32, or with ``activation="gelu"`` the
+    classic 2-matrix FFN (OPT style, ``w_gate`` unused)."""
+    u = weight_matmul(x, w_up)
+    if activation == "gelu":
+        a = F.gelu(u.float(), approximate="tanh").to(x.dtype)
+        return weight_matmul(a, w_down)
+    if activation != "swiglu":
+        raise ValueError(f"activation {activation!r} is not ported (swiglu | gelu)")
+    g = weight_matmul(x, w_gate)
+    a = F.silu(g.float()).to(x.dtype)
+    return weight_matmul(a * u, w_down)
 
 
 # --------------------------------------------------------------------------

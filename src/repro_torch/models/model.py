@@ -1,6 +1,8 @@
 """Unified LM wrapper (counterpart of ``repro.models.model``): one object
 per architecture exposing ``init``, ``loss_fn`` and the serving paths.
-Only the ``dense`` family is ported."""
+The ``dense`` family (``models.transformer``) and the ``hybrid`` family
+(``models.hymba``) are ported; only the dense one has the paged serving
+paths."""
 
 from __future__ import annotations
 
@@ -9,21 +11,25 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.hymba import HymbaLM
 from repro_torch.models.spec import init_params
 from repro_torch.models.transformer import TransformerLM, torch_dtype
 from repro_torch.utils.device import resolve_device
 
 
+_FAMILIES = {"dense": TransformerLM, "hybrid": HymbaLM}
+
+
 class LM:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, "
-                "'Other model families'); the port serves the dense family"
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, item "
+                f"12b 'Other model families'); ported: {sorted(_FAMILIES)}"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.impl = TransformerLM(cfg, self.device)
+        self.impl = _FAMILIES[cfg.family](cfg, self.device)
         self._specs = self.impl.param_specs()
 
     # ---- parameters -------------------------------------------------------
@@ -55,6 +61,12 @@ class LM:
         return self.impl.init_cache(batch_size, max_len)
 
     # ---- paged serving (continuous-batching engine) -----------------------
+    @property
+    def supports_paged_decode(self) -> bool:
+        """Attention-family models serve through the paged engine; the
+        recurrent (hybrid) family keeps the dense decode path."""
+        return hasattr(self.impl, "decode_step_paged")
+
     def init_paged_cache(self, n_pages: int, page_size: int):
         return self.impl.init_paged_cache(n_pages, page_size)
 

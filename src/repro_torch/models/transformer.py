@@ -4,7 +4,8 @@
 Parameters keep the reference's stacked layout — one ``[L, ...]`` tensor
 per block leaf — and a plain Python loop over layers takes the place of
 ``lax.scan``.  Ported: opt-125m's dense block (no qkv bias, no qk-norm,
-full causal attention, the 2-matrix GELU FFN), the training forward and
+full causal attention, the 2-matrix GELU FFN of ``activation="gelu"``, or
+SwiGLU), the training forward and
 its ``loss_fn``, dense-cache prefill/decode and the paged serving paths,
 speculative verify included.  Every weight matmul goes through
 ``layers.weight_matmul``, so a block leaf may be a quantized
@@ -57,6 +58,8 @@ class TransformerLM:
             "w_up": PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn),
             "w_down": PSpec((L, F, D), ("layers", "ff", "embed"), scale=s_ff),
         }
+        if c.activation != "gelu":
+            blocks["w_gate"] = PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn)
         return {
             "embed": PSpec((V, D), ("vocab", "embed"), scale=1.0),
             "blocks": blocks,
@@ -67,25 +70,29 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # block
     # ------------------------------------------------------------------
-    def _qkv(self, p, x, sin, cos):
-        """Projections and RoPE: x [B, S, D] -> q [B, S, H, dh],
-        k/v [B, S, KV, dh]."""
+    def _rope(self, pos: torch.Tensor) -> tuple:
+        """RoPE angles for positions ``pos`` [S], as [1, S, dh/2]."""
+        sin, cos = layers.rope_angles(pos, self.cfg.head_dim, self.cfg.rope_theta)
+        return sin[None], cos[None]
+
+    def _qkv(self, p, h, sin, cos):
+        """Projections and RoPE of the pre-normed h [B, S, D] -> q [B, S, H,
+        dh], k/v [B, S, KV, dh]."""
         c = self.cfg
-        B, S, _ = x.shape
+        B, S, _ = h.shape
         dh, H, KV = c.head_dim, c.n_heads, c.n_kv_heads
-        h = layers.rms_norm(x, p["ln1"], c.norm_eps)
-        q = layers.weight_matmul(h, p["wq"])
-        k = layers.weight_matmul(h, p["wk"])
-        v = layers.weight_matmul(h, p["wv"])
-        q = q.reshape(B, S, H, dh)
-        k = k.reshape(B, S, KV, dh)
-        v = v.reshape(B, S, KV, dh)
+        q = layers.weight_matmul(h, p["wq"]).reshape(B, S, H, dh)
+        k = layers.weight_matmul(h, p["wk"]).reshape(B, S, KV, dh)
+        v = layers.weight_matmul(h, p["wv"]).reshape(B, S, KV, dh)
         return layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos), v
+
+    def _ln1(self, p, x):
+        return layers.rms_norm(x, p["ln1"], self.cfg.norm_eps)
 
     def _attn(self, p, x, sin, cos, q_offset):
         c = self.cfg
         B, S, _ = x.shape
-        q, k, v = self._qkv(p, x, sin, cos)
+        q, k, v = self._qkv(p, self._ln1(p, x), sin, cos)
         o = layers.attention(q, k, v, q_offset=q_offset, chunked_min_seq=c.attn_chunked_min_seq)
         o = layers.weight_matmul(o.reshape(B, S, -1), p["wo"])
         return o, (k, v)
@@ -93,7 +100,7 @@ class TransformerLM:
     def _ffn(self, p, x):
         c = self.cfg
         h = layers.rms_norm(x, p["ln2"], c.norm_eps)
-        return layers.gelu_mlp(h, p["w_up"], p["w_down"])
+        return layers.gated_mlp(h, p.get("w_gate"), p["w_up"], p["w_down"], c.activation)
 
     def _block(self, p, x, sin, cos, q_offset):
         o, kv = self._attn(p, x, sin, cos, q_offset)
@@ -115,11 +122,7 @@ class TransformerLM:
         per-layer (k, v) stacked as [L, B, S, KV, dh]."""
         c = self.cfg
         x = params["embed"][batch["tokens"]]
-        S = x.shape[1]
-        sin, cos = layers.rope_angles(
-            torch.arange(S, device=x.device), c.head_dim, c.rope_theta
-        )
-        sin, cos = sin[None], cos[None]  # [1, S, dh/2]
+        sin, cos = self._rope(torch.arange(x.shape[1], device=x.device))
         ks, vs = [], []
         for i in range(c.n_layers):
             x, (k, v) = self._block(self._layer(params, i), x, sin, cos, 0)
@@ -174,15 +177,12 @@ class TransformerLM:
             raise ValueError(f"the cache's {Tc} positions are full")
         B = tokens.shape[0]
         x = params["embed"][tokens][:, None, :]  # [B, 1, D]
-        sin, cos = layers.rope_angles(
-            torch.tensor([pos], device=x.device), c.head_dim, c.rope_theta
-        )
-        sin, cos = sin[None], cos[None]
+        sin, cos = self._rope(torch.tensor([pos], device=x.device))
         valid = torch.arange(Tc, device=x.device) <= pos
         for i in range(c.n_layers):
             p = self._layer(params, i)
             k_l, v_l = cache["k"][i], cache["v"][i]
-            q, k, v = self._qkv(p, x, sin, cos)
+            q, k, v = self._qkv(p, self._ln1(p, x), sin, cos)
             k_l[:, pos] = k[:, 0].to(k_l.dtype)
             v_l[:, pos] = v[:, 0].to(v_l.dtype)
             o = layers.decode_attention(q, k_l, v_l, valid)
@@ -285,7 +285,7 @@ class TransformerLM:
         for i in range(c.n_layers):
             p = self._layer(params, i)
             k_l, v_l = cache["k"][i], cache["v"][i]
-            qkv = [self._qkv(p, x, sin, cos) for x, (sin, cos) in zip(xs, rope)]
+            qkv = [self._qkv(p, self._ln1(p, x), sin, cos) for x, (sin, cos) in zip(xs, rope)]
             q, k, v = qkv[0] if T == 1 else (torch.cat(parts, dim=1) for parts in zip(*qkv))
             k_l[phys, off] = k.to(k_l.dtype)  # q, k, v [S, T, H | KV, dh]
             v_l[phys, off] = v.to(v_l.dtype)

@@ -229,6 +229,70 @@ def normal(key, shape, device="cpu") -> torch.Tensor:
     return out.reshape(shape)
 
 
+# f32 and bf16 share the smallest normal, 2**-126 (``finfo(dtype).tiny``)
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _key_words(keys, device) -> tuple:
+    """A key, or ``[R, 2]`` keys, as two int64 values to broadcast over a
+    draw: ints for one key, ``[R, 1]`` tensors for one key per row."""
+    arr = np.asarray(keys, dtype=np.uint64)
+    if arr.shape == (2,):
+        return int(arr[0]), int(arr[1])
+    arr = arr.reshape(-1, 2).astype(np.int64)
+    t = torch.from_numpy(arr).to(device)
+    return t[:, :1], t[:, 1:]
+
+
+def uniform(key, shape, dtype=torch.float32, minval: float = 0.0, maxval: float = 1.0,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)`` for f32 and
+    bf16: the dtype's mantissa bits of the draw (the low 8 bits for bf16,
+    whose 7-bit mantissa jax draws from 8-bit words) under exponent 0, less
+    one, then ``floats * (maxval - minval) + minval`` and ``max(minval,
+    .)`` in ``dtype``, each op rounded to it (a bf16 op runs in f32 and
+    rounds once, as XLA:CPU's does).  ``key`` may be ``[R, 2]`` keys for a
+    draw of shape ``[R, ...]``: row i is ``uniform(key[i], shape[1:])``."""
+    shape = tuple(int(s) for s in shape)
+    k1, k2 = _key_words(key, device)
+    per_key = math.prod(shape[1:]) if torch.is_tensor(k1) else math.prod(shape)
+    idx = torch.arange(per_key, dtype=torch.int64, device=device)
+    x1, x2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    bits = (x1 ^ x2).reshape(shape)
+    if dtype == torch.float32:
+        fbits = (bits >> 9) | 0x3F800000
+    elif dtype == torch.bfloat16:
+        fbits = ((bits & 0xFF) >> 1) << 16 | 0x3F800000
+    else:
+        raise TypeError(f"uniform draws f32 or bf16, not {dtype}")
+    floats = fbits.to(torch.int32).view(torch.float32).to(dtype) - 1.0
+    lo, hi = (torch.tensor(v, dtype=dtype) for v in (minval, maxval))
+    span = (hi.float() - lo.float()).to(dtype)
+    out = (floats.float() * span.float()).to(dtype)
+    out = (out.float() + lo.float()).to(dtype)
+    return torch.maximum(out, lo.to(device))
+
+
+def gumbel(key, shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` in its default ``mode="low"``:
+    ``-log(-log(uniform(key, minval=tiny, maxval=1)))`` with XLA:CPU's f32
+    log, each op rounded to ``dtype``.  ``key`` as :func:`uniform`'s."""
+    u = uniform(key, shape, dtype, _TINY, 1.0, device)
+    inner = (-_xla_log(u.float())).to(dtype)
+    return (-_xla_log(inner.float())).to(dtype)
+
+
+def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)``: the argmax along
+    ``axis`` of ``gumbel(key, logits.shape, logits.dtype) + logits`` (the
+    first maximum on ties, as ``jnp.argmax``).  ``key`` may be ``[R, 2]``
+    keys for ``logits`` of shape ``[R, ...]``, one key per row, which is
+    ``vmap`` of the one-key draw over the rows."""
+    g = gumbel(key, logits.shape, logits.dtype, logits.device)
+    z = (g.float() + logits.float()).to(logits.dtype)
+    return torch.argmax(z, dim=axis)
+
+
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device``: one pinned, non-blocking copy on the
     card (a pageable copy would wait on the stream)."""

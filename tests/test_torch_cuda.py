@@ -34,6 +34,7 @@ from repro_torch.data import DataConfig, batch_at_step
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import quant_matmul as tqmm
+from repro_torch.kernels import selective_scan as tscan
 from repro_torch.kernels import subzo_perturb as tsub
 from repro_torch.kernels import tezo_adam as tadam
 from repro_torch.kernels import tezo_perturb as tpert
@@ -73,6 +74,11 @@ FLASH_CASES = [
     (1, 24, 88, 6, 2, 128, True, 0, 64),
     (1, 130, 130, 4, 1, 16, True, 48, 0),
     (2, 20, 33, 2, 2, 8, False, 0, 0),
+    # head dim 256 (paligemma-3b's; eight threads per row, 16-row K/V tiles)
+    (1, 70, 70, 4, 2, 256, True, 0, 0),
+    (2, 33, 57, 4, 2, 256, True, 16, 24),
+    # hymba-1.5b's prefill past its 1024 window: 25 heads over 5 kv heads
+    (1, 1100, 1100, 25, 5, 64, True, 1024, 0),
 ]
 
 
@@ -103,9 +109,53 @@ def test_flash_kernel_rows_are_independent(cuda):
 
 
 def test_flash_kernel_rejects_wide_heads(cuda):
-    q = torch.zeros((1, 4, 2, 160), device=cuda)
+    q = torch.zeros((1, 4, 2, 320), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         tflash.flash_attention(q, q, q)
+
+
+SCAN_CASES = [  # B, S, D, N: the training shape, ragged D and S, S = 1, N of 4 and 64
+    (8, 128, 3200, 16), (2, 37, 100, 16), (3, 1, 100, 16), (1, 50, 24, 4), (2, 20, 70, 64),
+]
+
+
+def _scan_inputs(B, S, D, N, cuda, seed):
+    x = _randn((B, S, D), cuda, seed, 0.5)
+    dt = torch.nn.functional.softplus(_randn((B, S, D), cuda, seed + 1, 1.0))
+    a = -torch.exp(_randn((D, N), cuda, seed + 2, 0.3))
+    b, c = _randn((B, S, N), cuda, seed + 3, 0.5), _randn((B, S, N), cuda, seed + 4, 0.5)
+    h0 = _randn((B, D, N), cuda, seed + 5, 0.1)
+    return x, dt, a, b, c, h0
+
+
+@pytest.mark.parametrize("B,S,D,N", SCAN_CASES)
+def test_scan_kernel_vs_plain(cuda, B, S, D, N):
+    """y and h_last within 1e-5 of the largest |y| (expf against torch.exp
+    in the last ulp); one launch per call, S = 1 included; two chained
+    launches are bitwise one launch over the whole sequence."""
+    args = _scan_inputs(B, S, D, N, cuda, seed=S + D)
+    n0 = tscan.selective_scan.launches
+    y, h = tscan.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert tscan.selective_scan.launches == n0 + 1
+    y_p, h_p = tscan.selective_scan_plain(*args)
+    scale = max(1.0, y_p.abs().max().item())
+    assert (y - y_p).abs().max().item() <= 1e-5 * scale
+    assert (h - h_p).abs().max().item() <= 1e-5 * max(1.0, h_p.abs().max().item())
+    if S > 1:
+        x, dt, a, b, c, h0 = args
+        cut = S // 3
+        y1, h1 = tscan.selective_scan(x[:, :cut], dt[:, :cut], a, b[:, :cut], c[:, :cut], h0)
+        y2, h2 = tscan.selective_scan(x[:, cut:], dt[:, cut:], a, b[:, cut:], c[:, cut:], h1)
+        assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h)
+
+
+def test_scan_dispatch_launches_at_every_length(cuda):
+    for S in (1, 5):
+        args = _scan_inputs(2, S, 40, 16, cuda, seed=S)
+        n0 = tscan.selective_scan.launches
+        dispatch.selective_scan_fwd(*args)
+        assert tscan.selective_scan.launches == n0 + 1
 
 
 def _paged(cuda, S, H, KV, dh, ps, pps, lengths, seed):
@@ -199,9 +249,15 @@ def _within_bf16_ulp(got: torch.Tensor, want: torch.Tensor, w_in: torch.Tensor) 
     return bool(torch.all((got - want).abs() <= ulp))
 
 
+# hymba-1.5b's low-rank leaves at rank 24, the layer axis cut to 2: a_log
+# (r = 16), w_dt1, w_dt2, w_bc, GQA wk / wv, a [L, D] norm scale, and the
+# odd-n embedding and lm_head at full size
+HYMBA_LEAVES = [((2, 3200, 16), 16), ((2, 3200, 100), 24), ((2, 100, 3200), 24),
+                ((2, 3200, 32), 24), ((2, 1600, 320), 24), ((32, 1600), 24),
+                ((32001, 1600), 24), ((1600, 32001), 24)]
 TEZO_CASES = [  # W shape, r
     ((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12), ((24, 32), 1), ((130, 257), 128),
-]
+] + HYMBA_LEAVES
 
 
 @pytest.mark.parametrize("shape,r", TEZO_CASES)
@@ -258,9 +314,10 @@ def test_tezo_kernels_vs_plain(cuda, shape, r, dtype):
     assert torch.equal(w, before)
 
 
-SUBZO_CASES = [  # W shape, r
+SUBZO_CASES = [  # W shape, r; r = 96 and 130 stage Σ in column chunks
     ((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12), ((24, 32), 1), ((130, 257), 64),
-]
+    ((200, 257), 96), ((2, 300, 140), 130),
+] + HYMBA_LEAVES
 
 
 def _orthonormal(shape, device, seed):
@@ -301,9 +358,9 @@ def test_subzo_kernel_vs_plain(cuda, shape, r, dtype):
 
 def test_subzo_kernel_rejects_bad_operands(cuda):
     w = torch.zeros(16, 16, device=cuda)
-    u = torch.zeros(16, 65, device=cuda)
-    with pytest.raises(ValueError, match="r <= 64"):
-        tsub.subzo_perturb(w, u, u, torch.zeros(1, 65, 65, device=cuda), [1.0])
+    u = torch.zeros(16, 4097, device=cuda)
+    with pytest.raises(ValueError, match="r <= 4096"):
+        tsub.subzo_perturb(w, u, u, torch.zeros(1, 4097, 4097, device=cuda), [1.0])
     u = torch.zeros(16, 4, device=cuda)
     with pytest.raises(ValueError, match="sigmas"):
         tsub.subzo_perturb(w, u, u, torch.zeros(2, 4, 4, device=cuda), [1.0])
@@ -336,7 +393,10 @@ def test_lozo_chain_kernel_is_single_passes(cuda, shape, r, dtype):
             assert _within_bf16_ulp(got, want, w), k
 
 
-NOISE_SHAPES = [(50, 40), (3, 24, 137), (2, 2, 16, 36), (12, 768)]
+# and hymba-1.5b's leaves with the layer axis cut to 2 (the full-size
+# embedding and lm_head run in chip_smoke.py's Hymba weight-pass phase)
+NOISE_SHAPES = [(50, 40), (3, 24, 137), (2, 2, 16, 36), (12, 768), (2, 3200, 16),
+                (2, 3200, 100), (2, 100, 3200), (2, 3200, 32), (2, 1600, 320), (32, 1600)]
 
 
 def _ulp_close(got: torch.Tensor, want: torch.Tensor, w_in: torch.Tensor) -> bool:
@@ -548,6 +608,11 @@ VERIFY_CASES = [  # S, T, H, KV, dh, ps, pps, lengths
     # out of a chunk row 4 reaches (30, 62, 95, 318), mid-chunk, and windows
     # overhanging the 21 x 16 capacity (330, 336)
     (8, 5, 12, 12, 64, 16, 21, [30, 62, 95, 200, 318, 330, 336, 0]),
+    # windows wider than one block's 1024 / dh rows: GQA G = 8 at draft_len
+    # 4 (T = 5, dh 128: 5 row blocks), and head dim 256
+    (3, 5, 16, 2, 128, 16, 4, [7, 33, 60]),
+    (2, 3, 4, 2, 256, 8, 3, [1, 18]),
+    (2, 1, 8, 1, 256, 8, 2, [0, 11]),
 ]
 
 
@@ -582,10 +647,11 @@ def test_verify_kernel_vs_plain(cuda, S, T, H, KV, dh, ps, pps, lengths):
     assert (got_m - want_m).abs().max().item() <= F32_ATOL
 
 
-def test_verify_t1_bitwise_decode_kernel(cuda):
+@pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (16, 2, 128), (8, 2, 256)])
+def test_verify_t1_bitwise_decode_kernel(cuda, H, KV, dh):
     """A one-token window is the decode kernel, bit for bit, in f32 and
-    bf16, at opt-125m's heads."""
-    q, kp, vp, bt, lens = _paged(cuda, 8, 12, 12, 64, 16, 20,
+    bf16, at opt-125m's heads, at G = 8 and at head dim 256."""
+    q, kp, vp, bt, lens = _paged(cuda, 8, H, KV, dh, 16, 20,
                                  [0, 1, 16, 17, 250, 31, 0, 320], seed=3)
     for dt in (torch.float32, torch.bfloat16):
         qd, kd, vd = (x.to(dt) for x in (q, kp, vp))
@@ -594,11 +660,11 @@ def test_verify_t1_bitwise_decode_kernel(cuda):
 
 
 def test_verify_kernel_refuses_oversized_window(cuda):
-    """T * G * dh past the kernel's 1024 register elements raises; it is
-    never truncated."""
-    q, kp, vp, bt, lens = _paged(cuda, 2, 4, 1, 64, 8, 2, [3, 5], seed=1)
-    qw = _randn((2, 5, 4, 64), cuda, 2)  # 5 x 4 rows x 64 = 1280
-    with pytest.raises(ValueError, match="register elements"):
+    """A head dim past the kernel's largest instance (256) raises; it is
+    never truncated.  A window of any T * G is taken (more row blocks)."""
+    q, kp, vp, bt, lens = _paged(cuda, 2, 4, 1, 320, 8, 2, [3, 5], seed=1)
+    qw = _randn((2, 5, 4, 320), cuda, 2)
+    with pytest.raises(ValueError, match="head dim"):
         tdec.paged_verify_attention(qw, kp, vp, bt, lens)
 
 

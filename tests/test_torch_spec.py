@@ -340,20 +340,25 @@ def test_spec_temperature_replays_nonspec(cfg, params):
     """Under temperature window position t draws from the stream of emitted
     position generated + t, so the sampled spec stream is the non-spec
     one, token for token, on a workload where a draft is accepted (so a
-    window position past 0 supplies an emitted token's draw)."""
-    def run(spec):
-        eng = ServeEngine(cfg, params, device="cpu", max_concurrent_decodes=2,
-                          max_prompt_len=8, max_new_tokens=6, page_size=8, temperature=0.2,
-                          spec_decode=spec, draft_len=3)
+    window position past 0 supplies an emitted token's draw), at
+    temperatures 0.2 and 0.8.  The smoke model's lm_head is scaled 8-fold
+    so that its samples repeat often enough for drafts to be accepted."""
+    sharp = {**params, "lm_head": params["lm_head"] * 8.0}
+
+    def run(spec, temperature):
+        eng = ServeEngine(cfg, sharp, device="cpu", max_concurrent_decodes=2,
+                          max_prompt_len=8, max_new_tokens=16, page_size=8,
+                          temperature=temperature, spec_decode=spec, draft_len=3)
         rng = np.random.default_rng(1)
         reqs = [Request(id=f"t{i}", tokens=rng.integers(2, 4, size=6).astype(np.int32),
-                        max_new=6, seed=200 + i, arrival=float(i)) for i in range(3)]
+                        max_new=16, seed=200 + i, arrival=float(i)) for i in range(3)]
         return eng.serve(reqs, step_clock=True)
 
-    (base, _), (spec, stats) = run(False), run(True)
-    assert stats["accepted_tokens"] > 0, stats
-    for i in range(3):
-        np.testing.assert_array_equal(spec[f"t{i}"]["tokens"], base[f"t{i}"]["tokens"])
+    for temperature in (0.2, 0.8):
+        (base, _), (spec, stats) = run(False, temperature), run(True, temperature)
+        assert stats["accepted_tokens"] > 0, (temperature, stats)
+        for i in range(3):
+            np.testing.assert_array_equal(spec[f"t{i}"]["tokens"], base[f"t{i}"]["tokens"])
 
 
 def test_spec_truncation_and_eos(engines):
