@@ -1,5 +1,5 @@
 // Helpers shared by the port's kernels: f32 conversion of the two input
-// types, the reference's finite mask constant, and the low-rank weight-pass
+// types, the reference's finite mask constant, cp.async, and the low-rank weight-pass
 // tile (the rank-r product and the rounded delta) that tezo_perturb.cu,
 // tezo_adam.cu and subzo_perturb.cu all run, so that a restore folded into
 // the Adam launch is bitwise the separate perturb launch it replaces.
@@ -7,6 +7,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace repro_torch {
 
@@ -24,6 +26,22 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);  // round to nearest even, as torch's .to()
+}
+
+// cp.async: 16 bytes global -> shared, asynchronous (LDGSTS); where !pred
+// the 16 bytes are zeros and src is not read.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float warp_max(float x) {

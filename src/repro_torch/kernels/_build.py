@@ -31,6 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 MAX_CHAIN = 8  # csrc/common.cuh kMaxChain
 MAX_LEAD = 4  # csrc/zo_noise.cuh kMaxLead
 
@@ -97,11 +98,14 @@ _SIGNATURES = {
     # q, k, v, out, B, S, T, H, KV, dh, q_offset, window, causal, scale,
     # dtype (0 f32 / 1 bf16), stream
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_F, _I, _P],
-    # q, k_pages, v_pages, block_tables, lengths, out, S, H, KV, dh,
-    # page_size, pages_per_slot, scale, q dtype, pages dtype, stream
-    "paged_decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    # the same with the bf16 q-tile's warps before the stream
+    "flash_attention_fwd_warps": [_P, _P, _P, _P] + [_I] * 9 + [_F, _I, _I, _P],
+    # q, k_pages, v_pages, block_tables, lengths, out, workspace, its floats,
+    # S, H, KV, dh, page_size, pages_per_slot, scale, q dtype, pages dtype,
+    # stream
+    "paged_decode_attention_fwd": [_P] * 7 + [_L] + [_I] * 6 + [_F, _I, _I, _P],
     # the same with the window length T after S
-    "paged_verify_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    "paged_verify_attention_fwd": [_P] * 7 + [_L] + [_I] * 7 + [_F, _I, _I, _P],
     # x, dt, a, b, c, h0, y, h_last, B, S, D, N, stream
     "selective_scan_fwd": [_P] * 8 + [_I] * 4 + [_P],
     # x, codes, lut, xu, qv, out, M, K, Kw, N, r, bits, x dtype, stream

@@ -8,14 +8,24 @@ serves both: ``csrc/paged_verify_attention.cu`` attends a window of T query
 tokens per slot, window position t reading ``kpos < lengths[s] + t`` (the
 slot's history plus the causal intra-window prefix), and the decode entry
 point (``csrc/paged_decode_attention.cu``) launches it with T = 1, so a
-T = 1 verify is bitwise a decode step, as in the reference.  One CUDA block
-per (slot, kv head, block of query rows) reads its own block-table row and
-length (the TPU kernel's scalar prefetch), loops over the positions its
-rows reach in chunks gathered through the table, masks the tail page, and
-serves its rows of the head's T * G window rows together.  Every limit is clamped to the
-slot's ``pages_per_slot * page_size`` positions; a length-0 slot writes
-exact zeros.  On the H100 it is bound by the bytes of the live KV pages.
-See the source for the design.
+T = 1 verify is bitwise a decode step, as in the reference.
+
+The kv axis is split across blocks: one CUDA block per (slot, kv head,
+split of :data:`SPLIT` positions, block of query rows) reads its slot's
+length and its split's block-table entries (the TPU kernel's scalar
+prefetch), gathers the split's K/V rows by ``cp.async`` into a two-stage
+ring in shared memory, masks the tail page, and writes a partial softmax
+state (m, l, acc) per row to a workspace this wrapper allocates
+(:func:`workspace_floats`); a second kernel combines each row's splits in
+ascending order.  The split, like every tile size, is a constant of the
+head dim and the dtypes, never of T, the slot count or the lengths, so a
+window row is bitwise the decode kernel at its length.  Every limit is
+clamped to the slot's ``pages_per_slot * page_size`` positions; a length-0
+slot writes exact zeros.  The products run on the CUDA cores (a row is a
+matrix-vector product at opt-125m's G = 1), in f32 for every dtype pair.
+On the H100 a call at decode's sizes moves ~2.5 MB, under a microsecond at
+the card's bandwidth, so its time is latency: two launches and three
+dependent reads per block.  See the source for the design.
 
 Unlike ``repro.kernels.ops`` the wrappers pad neither G nor dh.  The kernel
 holds 1024 / dh_pad query rows per block in registers (dh padded to 32,
@@ -30,7 +40,9 @@ instead spread a uniform softmax over the null page's rows for such a slot.
 
 On a CPU tensor :func:`paged_decode_attention` and
 :func:`paged_verify_attention` run their plain versions; on a CUDA tensor
-they launch the kernel or raise.
+they launch the kernels or raise.  Each call on the card is two launches,
+the split kernel (counted in ``launches``) and the combine kernel (counted
+in ``combine_launches``).
 """
 
 from __future__ import annotations
@@ -46,6 +58,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # cache, as the reference's ``decode_cache_dtype`` default does
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)}
+SPLIT = 64  # kv positions per split block: csrc/paged_attention.cuh kPagedSplit
+
+
+def split_count(pages_per_slot: int, page_size: int) -> int:
+    """Splits of a slot's ``pages_per_slot * page_size`` positions: the
+    kernel's grid covers a full slot, and a block past its rows' reach
+    exits at once."""
+    return -(-pages_per_slot * page_size // SPLIT)
+
+
+def workspace_floats(S: int, T: int, H: int, dh: int, pages_per_slot: int,
+                     page_size: int) -> int:
+    """f32 workspace of one call: per (slot, window position, head) and
+    split, the partial (m, l) and acc's dh values."""
+    return S * T * H * split_count(pages_per_slot, page_size) * (dh + 2)
 
 
 def paged_verify_attention_plain(q, k_pages, v_pages, block_tables, lengths):
@@ -107,19 +134,25 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
 
 
 def _launch(entry: str, q, k_pages, v_pages, block_tables, lengths, window: bool):
-    """One launch of the shared kernel through the C entry ``entry``; q is
-    [S,T,H,dh] (``window``) or [S,H,dh]."""
+    """One call of the shared kernels (the split kernel, then the combine
+    kernel) through the C entry ``entry``; q is [S,T,H,dh] (``window``) or
+    [S,H,dh]."""
     qw = q if window else q[:, None]
     S, T, H, dh = _check(qw, k_pages, v_pages, block_tables, lengths)
     page_size, KV = k_pages.shape[1], k_pages.shape[2]
+    pps = block_tables.shape[1]
     lib = _build.load()
     out = torch.empty_like(q)
+    # freed when this returns: the caching allocator hands the block out again
+    # only to work queued after both kernels on this stream
+    work = torch.empty(workspace_floats(S, T, H, dh, pps, page_size), dtype=torch.float32,
+                       device=q.device)
     shape = (S, T, H, KV) if window else (S, H, KV)
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            *shape, dh, page_size, block_tables.shape[1], dh**-0.5,
+            work.data_ptr(), work.numel(), *shape, dh, page_size, pps, dh**-0.5,
             _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
@@ -142,10 +175,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     out = _launch("paged_decode_attention_fwd", q, k_pages, v_pages, block_tables, lengths,
                   window=False)
     paged_decode_attention.launches += 1
+    paged_decode_attention.combine_launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.combine_launches = 0
 
 
 def paged_verify_attention(q, k_pages, v_pages, block_tables, lengths):
@@ -162,7 +197,9 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, lengths):
     out = _launch("paged_verify_attention_fwd", q, k_pages, v_pages, block_tables, lengths,
                   window=True)
     paged_verify_attention.launches += 1
+    paged_verify_attention.combine_launches += 1
     return out
 
 
 paged_verify_attention.launches = 0
+paged_verify_attention.combine_launches = 0

@@ -3,13 +3,23 @@ PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 (through ``repro.kernels.ops.flash_attention``).  The kernel is
-``csrc/flash_attention.cu``: one CUDA block per (64-row q-tile, head, batch
-row) loops over 32-row K/V tiles staged in shared memory, with the
-online-softmax state (m, l, acc) in f32 registers (32-row q-tiles and
-16-row K/V tiles at a head dim above 128).  On the H100 its work is
-the two attention products, run here as f32 FMAs on the CUDA cores (not the
-tensor cores), so the operations bound it; the score tile never reaches
-device memory.  See the source for the design.
+``csrc/flash_attention.cu``.  For bf16 inputs (every full-width config) one
+CUDA block of four warps owns 32 query rows of one (head, batch row): two
+slices of 16 rows, each taken by two warps that share out the 64-row K/V
+tiles (32 above a head dim of 64) and combine their softmax states at the
+end.  ``cp.async`` copies the tiles into a two-stage ring of bf16 tiles in
+shared memory, the next round's copies in flight during this round's
+products; QKᵀ
+and PV run on the tensor cores (``mma.sync`` m16n8k16, bf16 -> f32, P
+split into a bf16 high and low part so it keeps ~16 bits), with the
+online-softmax state (m, l, acc) in f32 registers in the accumulator's
+layout.  f32 inputs (the smoke configs) keep the CUDA-core body: one block
+per (64-row q-tile, head, batch row), f32 FMAs, as the repo's f32 numerics
+(full-f32 dots, TF32 off) ask.  At the main path's shapes a call's bytes
+and products take under a microsecond at the H100's peaks, so its time is
+latency: the launch and each block's chain of tile loads and products.
+The score tile never reaches device memory.  See the source for the
+design.
 
 Unlike ``repro.kernels.ops`` the wrapper pads nothing: the kernel masks
 kpos >= T and rows >= S itself, and takes any dh <= 256 (the repo's
@@ -28,6 +38,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# a bf16 block (csrc/flash_attention.cu): its slices of 16 query rows, the
+# warps that share out each slice's kv tiles (at head dims <= 128), and the
+# kv rows of a tile
+ROW_WARPS, KV_WARPS, KV_TILE = 2, 2, 64
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -81,21 +95,48 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    out = _launch(q, k, v, causal, window, q_offset, 0)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def _launch(q, k, v, causal, window, q_offset, warps):
     q_offset, window = int(q_offset), int(window)
     _check(q, k, v, q_offset, window)
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     lib = _build.load()
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, KV, dh,
+            q_offset, window, int(bool(causal)), dh**-0.5, _DTYPES[q.dtype])
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, KV, dh, q_offset, window, int(bool(causal)),
-            dh**-0.5, _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "flash_attention_fwd")
-    flash_attention.launches += 1
+        if warps == 0:
+            err, entry = lib.flash_attention_fwd(*args, stream), "flash_attention_fwd"
+        else:
+            err, entry = lib.flash_attention_fwd_warps(*args, warps, stream), \
+                "flash_attention_fwd_warps"
+    _build.check(err, entry)
     return out
 
 
-flash_attention.launches = 0
+# the bf16 blocks flash_attention_warps times: (row warps, kv warps, kv tile)
+WARP_CHOICES = [(2, 1, 64), (4, 1, 64), (1, 2, 64), (2, 2, 64), (1, 2, 32), (2, 2, 32),
+                (4, 2, 32), (1, 4, 32)]
+
+
+def flash_attention_warps(q, k, v, row_warps: int, kv_warps: int, kv_tile: int, *,
+                          causal=True, window=0, q_offset=0):
+    """The bf16 kernel with another block (one of ``WARP_CHOICES``), at a
+    head dim up to 64: for timing the choice of (ROW_WARPS, KV_WARPS,
+    KV_TILE).  The forward calls :func:`flash_attention`; this launch is not
+    counted."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention_warps times the bf16 kernel on a CUDA tensor")
+    if (row_warps, kv_warps, kv_tile) not in WARP_CHOICES:
+        raise ValueError(f"({row_warps}, {kv_warps}, {kv_tile}) is not one of {WARP_CHOICES}")
+    return _launch(q, k, v, causal, window, q_offset,
+                   1000 * row_warps + 100 * kv_warps + kv_tile)

@@ -100,6 +100,35 @@ def test_flash_kernel_vs_plain(cuda, B, S, T, H, KV, dh, causal, window, q_offse
     assert _bf16_ok(got_b, tflash.flash_attention_plain(qb.float(), kb.float(), vb.float(), **kw))
 
 
+# The bf16 kernel's tiles: 32 query rows a block (16 a warp), 64 kv rows a
+# tile (32 above a head dim of 64).  S and T off the tile multiples, a window
+# edge inside a tile, q_offset > 0, and head dims 32, 64, 128 and 256.
+FLASH_TILE_CASES = [
+    # B, S, T, H, KV, dh, causal, window, q_offset
+    (1, 33, 33, 4, 4, 64, True, 0, 0),
+    (2, 95, 95, 4, 2, 64, True, 0, 0),
+    (1, 47, 129, 2, 1, 64, True, 0, 82),
+    (1, 150, 150, 4, 2, 64, True, 40, 0),
+    (1, 17, 100, 3, 1, 64, True, 37, 83),
+    (2, 70, 70, 4, 2, 32, True, 21, 0),
+    (1, 100, 163, 4, 4, 128, True, 50, 63),
+    (1, 65, 65, 2, 2, 256, True, 0, 0),
+    (1, 40, 97, 2, 1, 256, True, 33, 57),
+    (1, 31, 45, 2, 2, 64, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,dh,causal,window,q_offset", FLASH_TILE_CASES)
+def test_flash_bf16_at_tile_boundaries(cuda, B, S, T, H, KV, dh, causal, window, q_offset):
+    """The tensor-core kernel against its plain version (in f32 from the same
+    bf16 inputs) within 2 bf16 ulps, where the q- and kv-tiles are ragged."""
+    q, k, v = (_randn(shape, cuda, s).to(torch.bfloat16) for shape, s in
+               (((B, S, H, dh), 11), ((B, T, KV, dh), 12), ((B, T, KV, dh), 13)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = tflash.flash_attention(q, k, v, **kw)
+    assert _bf16_ok(got, tflash.flash_attention_plain(q.float(), k.float(), v.float(), **kw))
+
+
 def test_flash_kernel_rows_are_independent(cuda):
     """A batch row's output is bitwise the same alone or next to another."""
     q, k, v = (_randn((2, 77, 4, 64), cuda, s) for s in (4, 5, 6))
@@ -604,9 +633,10 @@ VERIFY_CASES = [  # S, T, H, KV, dh, ps, pps, lengths
     (4, 2, 12, 12, 64, 16, 3, [1, 17, 0, 48]),
     (3, 4, 8, 2, 32, 8, 3, [5, 24, 9]),  # GQA G = 4: 4 x 4 rows of 32
     (2, 3, 4, 1, 40, 8, 2, [7, 13]),  # MQA, awkward head dim
-    # the spec path's shapes, over several 32-position chunks: row 0 masked
-    # out of a chunk row 4 reaches (30, 62, 95, 318), mid-chunk, and windows
-    # overhanging the 21 x 16 capacity (330, 336)
+    # the spec path's shapes, over the kernel's 64-position splits: row 0
+    # masked out of a split row 4 reaches (62), lengths across several
+    # split boundaries (200, 318), and windows overhanging the 21 x 16
+    # capacity (330, 336)
     (8, 5, 12, 12, 64, 16, 21, [30, 62, 95, 200, 318, 330, 336, 0]),
     # windows wider than one block's 1024 / dh rows: GQA G = 8 at draft_len
     # 4 (T = 5, dh 128: 5 row blocks), and head dim 256
@@ -657,6 +687,45 @@ def test_verify_t1_bitwise_decode_kernel(cuda, H, KV, dh):
         qd, kd, vd = (x.to(dt) for x in (q, kp, vp))
         win = tdec.paged_verify_attention(qd[:, None].contiguous(), kd, vd, bt, lens)
         assert torch.equal(win[:, 0], tdec.paged_decode_attention(qd, kd, vd, bt, lens))
+
+
+# lengths around the kernel's 64-position splits: split - 1, split, split
+# + 1, two splits and a tail, a dead slot, and a window overhanging capacity
+SPLIT_LENGTHS = [tdec.SPLIT - 1, tdec.SPLIT, tdec.SPLIT + 1, 2 * tdec.SPLIT + 37, 0, 318]
+
+
+@pytest.mark.parametrize("T", [2, 5])
+@pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (25, 5, 64), (32, 4, 128)])
+def test_verify_rows_are_bitwise_decode_across_splits(cuda, T, H, KV, dh):
+    """Window row t is bitwise the decode kernel at length + t, at G = 1
+    (opt-125m), 5 (hymba-1.5b) and 8, in bf16 and f32, with lengths on
+    either side of a split boundary."""
+    q1, kp, vp, bt, lens = _paged(cuda, len(SPLIT_LENGTHS), H, KV, dh, 16, 20, SPLIT_LENGTHS,
+                                  seed=T + H)
+    q = _randn((len(SPLIT_LENGTHS), T, H, dh), cuda, 70 + T, 0.3)
+    dead = lens == 0
+    for dt in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (x.to(dt) for x in (q, kp, vp))
+        win = tdec.paged_verify_attention(qd, kd, vd, bt, lens)
+        assert torch.all(win[dead] == 0)
+        for t in range(T):
+            at = torch.where(dead, 0, lens + t).to(torch.int32)
+            dec = tdec.paged_decode_attention(qd[:, t].contiguous(), kd, vd, bt, at)
+            assert torch.equal(win[:, t], dec), (dt, t)
+
+
+
+def test_decode_slot_is_unchanged_by_other_slots_lengths(cuda):
+    """A slot's decode output is bitwise the same while the other slots'
+    lengths cross from one split to five."""
+    base = None
+    for other in (5, tdec.SPLIT - 1, tdec.SPLIT + 1, 2 * tdec.SPLIT + 9, 318):
+        lengths = [200, other, 0, other]
+        q, kp, vp, bt, lens = _paged(cuda, 4, 12, 12, 64, 16, 20, lengths, seed=9)
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, kp, vp))
+        out = tdec.paged_decode_attention(qb, kb, vb, bt, lens)[0]
+        base = out if base is None else base
+        assert torch.equal(out, base), other
 
 
 def test_verify_kernel_refuses_oversized_window(cuda):

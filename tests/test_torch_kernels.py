@@ -7,6 +7,8 @@ plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 Inputs are made with numpy from a seed and fed to both sides.  Tolerances
 are f32: 1e-5 absolute (the two sides sum in different orders)."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,6 +192,29 @@ def test_cpu_wrappers_route_to_plain_versions():
     assert torch.equal(dispatch.decode_attention_fwd(*args), tdec.paged_decode_attention(*args))
     assert tflash.flash_attention.launches == n_flash
     assert tdec.paged_decode_attention.launches == n_dec
+
+
+def test_kernel_constants_match_their_sources():
+    """The wrappers' copies of the kernels' compile-time tile constants: the
+    paged kernel's split and the bf16 flash block's warps."""
+    csrc = Path(tdec.__file__).resolve().parents[1] / "csrc"
+    assert f"constexpr int kPagedSplit = {tdec.SPLIT};" in (csrc / "paged_attention.cuh").read_text()
+    flash = (csrc / "flash_attention.cu").read_text()
+    assert f"constexpr int kRowWarps = {tflash.ROW_WARPS};" in flash
+    assert f"return DHMAX <= 128 ? {tflash.KV_WARPS} : 1;" in flash
+    assert f"return DHMAX <= 64 ? {tflash.KV_TILE} : 32;" in flash
+    for rw, kw, bk in tflash.WARP_CHOICES:
+        assert f"case {1000 * rw + 100 * kw + bk}: REPRO_FLASH_TC(64, {rw}, {kw}, {bk});" in flash
+
+
+@pytest.mark.parametrize("pps,ps,splits", [(1, 1, 1), (4, 16, 1), (8, 8, 1), (1, 65, 2),
+                                           (21, 16, 6), (34, 16, 9)])
+def test_paged_workspace_arithmetic(pps, ps, splits):
+    """The splits cover a full slot (pages_per_slot * page_size positions),
+    and the workspace holds (m, l) and dh partial sums per row and split."""
+    assert tdec.split_count(pps, ps) == splits
+    assert (splits - 1) * tdec.SPLIT < pps * ps <= splits * tdec.SPLIT
+    assert tdec.workspace_floats(8, 5, 12, 64, pps, ps) == 8 * 5 * 12 * splits * 66
 
 
 def test_wrappers_refuse_other_devices():
