@@ -54,6 +54,22 @@ class DeltaChain(ctypes.Structure):
         return ch
 
 
+class FactorList(ctypes.Structure):
+    """``repro_torch::FactorList`` (csrc/common.cuh), passed by value: the
+    device pointers of up to MAX_CHAIN f32 factors, one per delta."""
+
+    _fields_ = [("p", _P * MAX_CHAIN)]
+
+    @classmethod
+    def of(cls, tensors) -> "FactorList":
+        if len(tensors) > MAX_CHAIN:
+            raise ValueError(f"a chain holds at most {MAX_CHAIN} deltas; got {len(tensors)}")
+        fl = cls()
+        for i, t in enumerate(tensors):
+            fl.p[i] = t.data_ptr()
+        return fl
+
+
 class NoiseChain(ctypes.Structure):
     """``repro_torch::noise::NoiseChain`` (csrc/zo_noise.cuh), by value."""
 
@@ -110,8 +126,12 @@ _SIGNATURES = {
     "selective_scan_fwd": [_P] * 8 + [_I] * 4 + [_P],
     # x, codes, lut, xu, qv, out, M, K, Kw, N, r, bits, x dtype, stream
     "quant_matmul_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # the same with the bf16 block's tile code in place of the x dtype
+    "quant_matmul_fwd_tile": [_P] * 6 + [_I] * 7 + [_P],
     # w, out, u, v, tau, chain, B, m, n, r, dtype, stream
     "tezo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
+    # w, out, u, the k V factors, chain, B, m, n, r, dtype, stream
+    "lozo_chain_fwd": [_P] * 3 + [FactorList, DeltaChain] + [_I] * 5 + [_P],
     # w, out, u, v, sigma, chain, B, m, n, r, dtype, stream
     "subzo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
     # w, out, u, v, tau_m, tau_v, tau_r, restore chain, -lr, eps, decay,

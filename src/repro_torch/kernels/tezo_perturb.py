@@ -11,20 +11,21 @@ floats, so no step reads anything back from the device.
 Replaces the TPU kernel ``repro/kernels/tezo_perturb.py::tezo_perturb``
 (through ``repro.kernels.ops.tezo_perturb``).  The kernel is
 ``csrc/tezo_perturb.cu``: one launch per leaf over (column tiles, row
-tiles, batch index), W held in registers for the whole chain and each
-rank-r delta formed there from factor columns staged in shared memory, so
-Z never reaches device memory.  It writes in place unless ``out`` names
-another buffer of W's shape (the ``exact`` restore mode branches copies
-off the original weights that way).
+tiles, batch index).  A block's W tile arrives in shared memory by 16-byte
+asynchronous copies while the factor columns are staged and each rank-r
+delta is formed in registers, so Z never reaches device memory; the
+deltas are applied to the shared tile and it goes back with 16-byte
+stores.  It writes in place unless ``out`` names another buffer of W's
+shape (the ``exact`` restore mode branches copies off the original weights
+that way).
 
 On a CPU tensor :func:`tezo_perturb` runs :func:`tezo_perturb_plain`; on a
 CUDA tensor it launches the kernel or raises.
 
 LOZO's ``W ← round_W(d_s·W + scale_s·U·V_sᵀ)`` chains run on the same
-kernel (:func:`lozo_chain_k`, the reference's ``ops.lozo_chain_k``): U
-repeated k times and the V blocks side by side widen the factors to k·r,
-and τ row s is 1 on block s and 0 elsewhere, so each delta sums exact
-zeros outside its block and the chain is bitwise k single passes.
+kernel (:func:`lozo_chain_k`, the reference's ``ops.lozo_chain_k``): U as
+it is and the k V factors by pointer, each delta summing its own r
+columns, so the chain is bitwise k single passes.
 """
 
 from __future__ import annotations
@@ -139,16 +140,25 @@ def lozo_chain_plain(w, u, vs, scales, decay=None, out=None):
 def lozo_chain_k(w, u, vs, scales, decay=None, out=None):
     """``scales[s]·U·vs[s]ᵀ`` for s in order, in one pass over ``w`` (in
     place, or into ``out``): ``u [..., m, r]`` the window's shared factor,
-    ``vs`` k fresh ``[..., n, r]`` factors, f32.  On the card, one
-    ``tezo_perturb`` launch over the widened factors."""
+    ``vs`` k fresh ``[..., n, r]`` factors, f32.  On the card, one launch of
+    the tezo_perturb kernel (counted as such) in its LOZO mode."""
     if w.device.type == "cpu":
         return lozo_chain_plain(w, u, vs, scales, decay=decay, out=out)
-    k, r = len(vs), u.shape[-1]
-    if len(scales) != k:
+    if w.device.type != "cuda":
+        raise ValueError(f"lozo_chain_k runs on cuda or cpu, not {w.device}")
+    k = len(vs)
+    if len(scales) != k or k == 0:
         raise ValueError(f"{k} V factors but {len(scales)} scales")
-    uk = torch.cat([u] * k, dim=-1) if k > 1 else u
-    vk = torch.cat(list(vs), dim=-1) if k > 1 else vs[0]
-    eye = torch.eye(k, dtype=torch.float32, device=w.device)
-    taus = eye[:, :, None].expand(k, k, r).reshape(k, k * r)  # eye(k) repeated over r
-    taus = taus.expand(*w.shape[:-2], k, k * r).contiguous()
-    return tezo_perturb(w, uk, vk, taus, scales, decay=decay, out=out)
+    for v in vs:
+        B, m, n, r = check_factors(w, u, v)
+    out = _check_out(w, out)
+    chain = _build.DeltaChain.of(scales, _decays(k, decay))
+    lib = _build.load()
+    with torch.cuda.device(w.device):
+        err = lib.lozo_chain_fwd(
+            w.data_ptr(), out.data_ptr(), u.data_ptr(), _build.FactorList.of(vs), chain,
+            B, m, n, r, _DTYPES[w.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "lozo_chain_fwd")
+    tezo_perturb.launches += 1
+    return out

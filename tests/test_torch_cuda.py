@@ -395,11 +395,15 @@ def test_subzo_kernel_rejects_bad_operands(cuda):
         tsub.subzo_perturb(w, u, u, torch.zeros(2, 4, 4, device=cuda), [1.0])
 
 
-@pytest.mark.parametrize("shape,r", [((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12)])
+@pytest.mark.parametrize("shape,r", [((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12),
+                                     ((130, 257), 24), ((2, 300, 256), 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lozo_chain_kernel_is_single_passes(cuda, shape, r, dtype):
-    """LOZO's widened chain on tezo_perturb: bitwise its k = 1 launches (the
-    masked blocks add exact zeros), and close to the plain version."""
+    """LOZO's chain on the tezo_perturb kernel, k = 2 and 3, each delta over
+    its own r columns: bitwise its k = 1 launches, bitwise the chain widened
+    to k·r columns with a one-hot τ (exact zeros outside each delta's
+    block), and close to the plain version; over several row and column
+    tiles, with rows of 16-byte multiples and not."""
     *batch, m, n = shape
     w = _randn(shape, cuda, 1, 0.1).to(dtype)
     u = _randn((*batch, m, r), cuda, 2, 1.0)
@@ -415,6 +419,12 @@ def test_lozo_chain_kernel_is_single_passes(cuda, shape, r, dtype):
             single = tpert.lozo_chain_k(single, u, [vs[s]], [scales[s]],
                                         decay=0.99 if s == k - 1 else None)
         assert torch.equal(got, single), k
+        taus = torch.eye(k, device=cuda)[:, :, None].expand(k, k, r).reshape(k, k * r)
+        widened = tpert.tezo_perturb(w.clone(), torch.cat([u] * k, dim=-1).contiguous(),
+                                     torch.cat(vs[:k], dim=-1).contiguous(),
+                                     taus.expand(*batch, k, k * r).contiguous(), scales[:k],
+                                     decay=0.99)
+        assert torch.equal(got, widened), k
         want = tpert.lozo_chain_plain(w.clone(), u, vs[:k], scales[:k], decay=0.99)
         if dtype == torch.float32:
             assert (got - want).abs().max().item() <= 1e-5, k
@@ -740,18 +750,33 @@ def test_verify_kernel_refuses_oversized_window(cuda):
 QMM_CASES = [  # scheme, M, K, N
     ("nf4", 37, 96, 80), ("lut3", 129, 200, 72), ("lut4", 64, 768, 130),
     ("lut3", 1, 768, 768), ("lut4", 300, 3072, 96),
+    # lut3 pads K = 768 to 1280: planes 6-9 are skipped, and their codes
+    # are nonzero here; the FFN down-projection at the forward's rows
+    ("lut3", 200, 768, 192), ("lut4", 1024, 3072, 768),
 ]
+
+
+def _qmm_leaf(scheme, K, N, device):
+    """A quantized [K, N] leaf with a nonzero acc and nacc, and nonzero
+    codes in the packing's pad rows (K up to Kp), which x's zeros there
+    must cancel."""
+    w = _randn((K, N), device, 1, 0.1)
+    leaf = quant.quantize_leaf(w, scheme=scheme, rank=8, key=(1, 2), path="['w']",
+                               with_nacc=True)
+    # xu @ qvᵀ about a third of the dequantized product: both must be right
+    leaf = leaf.replace(acc=_randn((8,), device, 2, 0.01), nacc=_randn((K, N), device, 3, 0.01))
+    kp = leaf.codes.shape[0] * (32 // leaf.bits)
+    codes = quant.unpack_codes(leaf.codes, leaf.bits, kp)
+    g = torch.Generator().manual_seed(5)
+    codes[K:] = torch.randint(1, 1 << leaf.bits, (kp - K, N), generator=g).to(device)
+    return leaf.replace(codes=quant.pack_codes(codes, leaf.bits))
 
 
 @pytest.mark.parametrize("scheme,M,K,N", QMM_CASES)
 def test_quant_matmul_kernel_vs_plain(cuda, scheme, M, K, N):
-    """Ragged M and N, K padded to 128 or 640, a nonzero acc; the same
-    through dispatch with ``nacc``."""
-    w = _randn((K, N), cuda, 1, 0.1)
-    leaf = quant.quantize_leaf(w, scheme=scheme, rank=8, key=(1, 2), path="['w']",
-                               with_nacc=True)
-    # xu @ qvᵀ about a third of the dequantized product: both must be right
-    leaf = leaf.replace(acc=_randn((8,), cuda, 2, 0.01), nacc=_randn((K, N), cuda, 3, 0.01))
+    """Ragged M and N, K padded to 128 or 640 with nonzero pad codes, a
+    nonzero acc; the same through dispatch with ``nacc``."""
+    leaf = _qmm_leaf(scheme, K, N, cuda)
     x = _randn((M, K), cuda, 4, 1.0)
     lut = quant.scaled_lut(leaf)
     xu = x @ (leaf.qu * leaf.acc)
@@ -773,6 +798,20 @@ def test_quant_matmul_kernel_vs_plain(cuda, scheme, M, K, N):
     fwd = dispatch.quant_matmul_fwd(x, leaf)
     ref = dispatch._quant_matmul_ref(x, leaf)
     assert (fwd - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("scheme,M,K,N", [("lut4", 129, 768, 200), ("lut3", 64, 200, 72)])
+def test_quant_matmul_tiles_agree(cuda, scheme, M, K, N):
+    """Every bf16 block of ``TILE_CHOICES`` sums each output in the same
+    order, so all give the forward's result bitwise."""
+    leaf = _qmm_leaf(scheme, K, N, cuda)
+    xb = _randn((M, K), cuda, 4, 1.0).to(torch.bfloat16)
+    lut = quant.scaled_lut(leaf)
+    xu = xb.float() @ (leaf.qu * leaf.acc)
+    want = tqmm.quant_matmul(xb, leaf.codes, lut, xu, leaf.qv, bits=leaf.bits)
+    for tile in tqmm.TILE_CHOICES:
+        got = tqmm.quant_matmul_tile(xb, leaf.codes, lut, xu, leaf.qv, bits=leaf.bits, tile=tile)
+        assert torch.equal(got, want), tile
 
 
 @pytest.mark.parametrize("method", ["tezo_adam", "mezo_adam"])

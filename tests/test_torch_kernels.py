@@ -19,8 +19,10 @@ from repro.kernels import ops
 from repro.kernels.ref import flash_attention_ref
 from repro.models import layers as jlayers
 from repro_torch.core import dispatch
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import quant_matmul as tqmm
 from repro_torch.models import layers as tlayers
 
 ATOL = 1e-5
@@ -205,6 +207,27 @@ def test_kernel_constants_match_their_sources():
     assert f"return DHMAX <= 64 ? {tflash.KV_TILE} : 32;" in flash
     for rw, kw, bk in tflash.WARP_CHOICES:
         assert f"case {1000 * rw + 100 * kw + bk}: REPRO_FLASH_TC(64, {rw}, {kw}, {bk});" in flash
+
+
+def test_weight_kernel_constants_match_their_sources():
+    """The wrappers' copies of quant_matmul's compile-time constants (its K
+    group, the blocks it launches and those timed beside them, the
+    epilogue's rank limit) and the chain length a FactorList holds."""
+    csrc = Path(tqmm.__file__).resolve().parents[1] / "csrc"
+    qmm = (csrc / "quant_matmul.cu").read_text()
+
+    def code(t):
+        return 100 * t[0] + 10 * t[1] + t[2]
+
+    assert f"constexpr int kBK = {tqmm.GROUP_ROWS};" in qmm
+    assert f"constexpr int kTileWide = {code(tqmm.TILE_WIDE)}, kTile = {code(tqmm.TILE)};" in qmm
+    assert tqmm.TILE in tqmm.TILE_CHOICES and tqmm.TILE_WIDE in tqmm.TILE_CHOICES
+    for wm, wn, mt in tqmm.TILE_CHOICES:
+        assert f"case {code((wm, wn, mt))}: REPRO_QMM_TC({wm}, {wn}, {mt});" in qmm
+    assert f"constexpr int kMaxRank = {tqmm.MAX_RANK};" in qmm
+    common = (csrc / "common.cuh").read_text()
+    assert f"constexpr int kMaxChain = {_build.MAX_CHAIN};" in common
+    assert len(_build.FactorList().p) == _build.MAX_CHAIN
 
 
 @pytest.mark.parametrize("pps,ps,splits", [(1, 1, 1), (4, 16, 1), (8, 8, 1), (1, 65, 2),

@@ -241,6 +241,49 @@ def test_quant_matmul_kernel_operands_and_routing():
         tqmm.quant_matmul(meta, leaf.codes, leaf.codebook, xu, leaf.qv, bits=4)
 
 
+def _within_2_bf16_ulps(got: torch.Tensor, ref_f32: torch.Tensor) -> bool:
+    """The card's bf16 bar: within 2 bf16 ulps (+1e-5) of the f32 plain
+    version (tests/test_torch_cuda.py, chip_smoke.py)."""
+    _, e = torch.frexp(ref_f32.abs())
+    ulp = torch.ldexp(torch.ones_like(ref_f32), e - 8)
+    return bool(torch.all((got.float() - ref_f32).abs() <= 2 * ulp + 1e-5))
+
+
+@pytest.mark.parametrize("scheme", ["nf4", "lut3", "lut4"])
+def test_lut_parts_sum_to_the_lut_bitwise(scheme):
+    """The bf16 kernel's split of a scaled LUT into hi, mid and lo (each
+    rounded to nearest even) sums to the f32 entry exactly, so its three
+    products with bf16 x carry no weight error; hi + mid alone does not."""
+    w = torch.randn(96, 80, generator=torch.Generator().manual_seed(len(scheme))) * 0.05
+    leaf = quant.quantize_leaf(w, scheme=scheme, rank=4, key=(len(scheme), 1), path="['w']")
+    lut = quant.scaled_lut(leaf)
+    hi, mid, lo = tqmm.lut_parts(lut)
+    assert {hi.dtype, mid.dtype, lo.dtype} == {torch.bfloat16}
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), lut)
+    assert not torch.equal(hi.float() + mid.float(), lut)
+
+
+def test_one_part_lut_fails_the_bf16_bar():
+    """At K = 3072 (the FFN down-projection's depth) a kernel that
+    multiplied bf16(W) alone misses the card's bf16 bar against the f32
+    plain version, so the bar catches a one-part kernel; the three parts
+    reproduce the plain version bitwise."""
+    g = torch.Generator().manual_seed(7)
+    K, N, M = 3072, 64, 64
+    leaf = quant.quantize_leaf(torch.randn(K, N, generator=g) * 0.05, scheme="lut4", rank=4,
+                               key=(7, 1), path="['w']")
+    lut = quant.scaled_lut(leaf)
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16).float()
+    xu = torch.zeros(M, 4)
+    want = tqmm.quant_matmul_plain(x, leaf.codes, lut, xu, leaf.qv, bits=4)
+    hi, mid, lo = tqmm.lut_parts(lut)
+    one = tqmm.quant_matmul_plain(x, leaf.codes, hi.float(), xu, leaf.qv, bits=4)
+    three = tqmm.quant_matmul_plain(x, leaf.codes, (hi.float() + mid.float()) + lo.float(), xu,
+                                    leaf.qv, bits=4)
+    assert not _within_2_bf16_ulps(one.to(torch.bfloat16), want)
+    assert torch.equal(three, want)
+
+
 # --------------------------------------------------------------------------
 # the step against the reference
 # --------------------------------------------------------------------------
