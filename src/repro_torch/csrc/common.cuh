@@ -1,9 +1,10 @@
 // Helpers shared by the port's kernels: f32 conversion of the two input
 // types, the reference's finite mask constant, cp.async, the tensor-core
-// operand loads and products, and the low-rank weight-pass tile (the rank-r
-// product and the rounded delta) that tezo_perturb.cu, tezo_adam.cu and
-// subzo_perturb.cu all run, so that a restore folded into the Adam launch
-// is bitwise the separate perturb launch it replaces.
+// operand loads and products, and the low-rank weight-pass tile (the W
+// stream, the factor staging, the rank-r sum and the rounded delta) that
+// tezo_perturb.cu, tezo_adam.cu and subzo_perturb.cu all run, so that a
+// restore folded into the Adam launch is bitwise the separate perturb
+// launch it replaces.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,6 +40,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
                "l"(src), "r"(pred ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// cp.async of 4 bytes (LDGSTS); where !pred the 4 bytes are zeros and src
+// is not read.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
 // wait until at most N of this thread's committed groups are in flight
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -77,6 +84,15 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uin
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// The opt-in to more than 48 KB of shared memory a block (static plus
+// dynamic), made once per kernel instance; returns its cudaError_t.
+template <auto kKernel>
+inline int allow_smem(size_t bytes) {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  return static_cast<int>(err);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -113,12 +129,9 @@ namespace tezo {
 // A block owns a kBM x kBN tile of one matrix of the (batched) leaf; thread
 // (tx, ty) owns rows ty*kTM .. +3 and columns tx*4 .. +3 and 64 + tx*4 .. +3.
 // The rank-r sum is staged through shared memory kRC factor columns at a
-// time, as f32 [j][row] and [j][col] so each step is three 16-byte loads.
-// A warp stages 32 rows of one rank column, except for an a-side loader
-// that sets kWarpPerRow (SubZO's U * Sigma, an r-term sum per value): there
-// a warp takes one row and kRC consecutive columns, so each term is one
-// broadcast read of U's row instead of 32 cache lines, and kPad keeps the
-// transposed stores to 4-way bank conflicts with 16-byte aligned rows.
+// time, as f32 [j][row] and [j][col] so each step is three 16-byte loads
+// (kPad keeps the transposed stores to 4-way bank conflicts with 16-byte
+// aligned rows).
 constexpr int kBM = 64, kBN = 128, kRC = 32, kPad = 4;
 constexpr int kTM = 4, kTN = 8;
 constexpr int kThreads = 256;
@@ -137,35 +150,9 @@ __device__ __forceinline__ int tile_col(int c) {
   return (c < 4 ? 0 : 64 - 4) + (threadIdx.x % 16) * 4 + c;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float (&w)[kTM][kTN], const T* W, const Tile& t) {
-#pragma unroll
-  for (int a = 0; a < kTM; ++a) {
-    const int row = t.row0 + tile_row(a);
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) {
-      const int col = t.col0 + tile_col(c);
-      w[a][c] = (row < t.m && col < t.n)
-                    ? to_f32(W[static_cast<size_t>(row) * t.n + col]) : 0.f;
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_tile(T* W, const float (&w)[kTM][kTN], const Tile& t) {
-#pragma unroll
-  for (int a = 0; a < kTM; ++a) {
-    const int row = t.row0 + tile_row(a);
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) {
-      const int col = t.col0 + tile_col(c);
-      if (row < t.m && col < t.n) W[static_cast<size_t>(row) * t.n + col] = from_f32<T>(w[a][c]);
-    }
-  }
-}
-
 // acc[a][c] += sum_j sm.a[j][row a] * sm.b[j][column c] over the staged
-// rank columns j = 0 .. jn-1 in ascending order, one f32 fma per term.
+// rank columns j = 0 .. jn-1 in ascending order, one f32 fma per term.  A
+// sum split over consecutive column chunks is bitwise the sum over all.
 __device__ __forceinline__ void rank_fma(float (&acc)[kTM][kTN], const RankSmem& sm, int jn) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   for (int j = 0; j < jn; ++j) {
@@ -181,102 +168,21 @@ __device__ __forceinline__ void rank_fma(float (&acc)[kTM][kTN], const RankSmem&
   }
 }
 
-// acc[i][l] += sum_j a(row_i, j) * b(l, j) for rank columns j = c_begin ..
-// c_end-1 in ascending order, one f32 fma per term (rank_fma), with b = v
-// (kSquaredB: v * v) and a given by the loader ``ALoad::a(u, aux, row, c0,
-// j, r)`` for rank column c0 + j: TeZO's u * tau (TauA<false>, aux = tau),
-// its squared form (TauA<true>) or SubZO's row of U * Sigma
-// (subzo_perturb.cu, aux = Sigma's staged columns).  Rows >= m and columns
-// >= n read zeros.  A sum split over consecutive column ranges is bitwise
-// the sum over all of them.
-template <bool kSquaredB, typename ALoad, typename Aux>
-__device__ __forceinline__ void rank_product_cols(float (&acc)[kTM][kTN],
-                                                  const float* __restrict__ u,
-                                                  const float* __restrict__ v,
-                                                  const Aux& aux, const Tile& t,
-                                                  RankSmem& sm, int c_begin, int c_end) {
-  for (int c0 = c_begin; c0 < c_end; c0 += kRC) {
-    const int jn = min(kRC, c_end - c0);
-    __syncthreads();  // the previous chunk has been read
-    for (int idx = threadIdx.x; idx < kRC * kBM; idx += kThreads) {
-      const int j = ALoad::kWarpPerRow ? idx % kRC : idx / kBM;
-      const int i = ALoad::kWarpPerRow ? idx / kRC : idx % kBM, row = t.row0 + i;
-      float x = 0.f;
-      if (j < jn && row < t.m) x = ALoad::a(u, aux, row, c0, j, t.r);
-      sm.a[j][i] = x;
-    }
-    for (int idx = threadIdx.x; idx < kRC * kBN; idx += kThreads) {
-      const int l = idx % kBN, j = idx / kBN, col = t.col0 + l;
-      float y = 0.f;
-      if (j < jn && col < t.n) {
-        const float vv = v[static_cast<size_t>(col) * t.r + c0 + j];
-        y = kSquaredB ? __fmul_rn(vv, vv) : vv;
-      }
-      sm.b[j][l] = y;
-    }
-    __syncthreads();
-    rank_fma(acc, sm, jn);
-  }
-}
-
-// acc = the whole rank-r product (rank_product_cols over columns 0 .. r-1).
-template <bool kSquaredB, typename ALoad, typename Aux>
-__device__ __forceinline__ void rank_product(float (&acc)[kTM][kTN],
-                                             const float* __restrict__ u,
-                                             const float* __restrict__ v, const Aux& aux,
-                                             const Tile& t, RankSmem& sm) {
+__device__ __forceinline__ void zero(float (&acc)[kTM][kTN]) {
 #pragma unroll
   for (int a = 0; a < kTM; ++a)
 #pragma unroll
     for (int c = 0; c < kTN; ++c) acc[a][c] = 0.f;
-  rank_product_cols<kSquaredB, ALoad>(acc, u, v, aux, t, sm, 0, t.r);
 }
 
-// TeZO's a-side: u * tau (kSquared: (u * u) * tau), each factor product
-// rounded as the reference's elementwise products are.
-template <bool kSquared>
-struct TauA {
-  static constexpr bool kWarpPerRow = false;
-  static __device__ __forceinline__ float a(const float* __restrict__ u,
-                                            const float* __restrict__ tau, int row, int c0,
-                                            int j, int r) {
-    const float uu = u[static_cast<size_t>(row) * r + c0 + j];
-    return kSquared ? __fmul_rn(__fmul_rn(uu, uu), tau[c0 + j]) : __fmul_rn(uu, tau[c0 + j]);
-  }
-};
-
-// TeZO's product: a = u * tau (kSquared: (u * u) * tau), b = v (v * v).
-template <bool kSquared>
-__device__ __forceinline__ void rank_r_product(float (&acc)[kTM][kTN],
-                                               const float* __restrict__ u,
-                                               const float* __restrict__ v,
-                                               const float* __restrict__ tau,
-                                               const Tile& t, RankSmem& sm) {
-  rank_product<kSquared, TauA<kSquared>>(acc, u, v, tau, t, sm);
-}
-
-// One delta: w <- round_T(d * w + sc * z), each product and the sum rounded
-// on its own (no fma: the reference's f32 accumulate keeps them apart),
-// then widened back to f32 for the next delta.
-template <typename T>
-__device__ __forceinline__ void apply_delta(float (&w)[kTM][kTN], const float (&z)[kTM][kTN],
-                                            float d, float sc) {
-#pragma unroll
-  for (int a = 0; a < kTM; ++a)
-#pragma unroll
-    for (int c = 0; c < kTN; ++c)
-      w[a][c] = to_f32(from_f32<T>(__fadd_rn(__fmul_rn(d, w[a][c]), __fmul_rn(sc, z[a][c]))));
-}
-
-// The weight tile through shared memory, for tezo_perturb.cu: ws is the
-// block's [kBM][kBN] tile of W in W's own type, so a delta that rounds to
-// T and widens back (apply_delta) is a store to ws and a load from it.
-// stage_w_tile fills it by 16-byte cp.async where vec (every row 16-byte
-// aligned: n a multiple of 16 / sizeof(T) and an aligned base), else
-// element by element, and commits one cp.async group either way (empty in
-// the second case), to be waited for before the first apply_delta_smem;
-// store_w_tile writes the tile back the same way.  Rows >= m and columns
-// >= n are neither read nor written in W.
+// The weight tile through shared memory: ws is the block's [kBM][kBN] tile
+// of W in W's own type, so a delta that rounds to T and widens back is a
+// store to ws and a load from it.  stage_w_tile fills it by 16-byte
+// cp.async where vec (every row 16-byte aligned: n a multiple of 16 /
+// sizeof(T) and an aligned base), else element by element, and commits one
+// cp.async group either way (empty in the second case), to be waited for
+// before the first apply_delta_smem; store_w_tile writes the tile back the
+// same way.  Rows >= m and columns >= n are neither read nor written in W.
 template <typename T>
 __device__ __forceinline__ void stage_w_tile(T* ws, const T* W, const Tile& t, bool vec) {
   constexpr int kPer = 16 / sizeof(T), kCPR = kBN / kPer;  // elements per chunk, chunks per row
@@ -339,8 +245,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
-// apply_delta on the thread's elements of the shared tile: w <- round_T(d *
-// w + sc * z), the products and the sum rounded apart, as apply_delta.
+// One delta on the thread's elements of the shared tile: w <- round_T(d *
+// w + sc * z), each product and the sum rounded on its own (no fma: the
+// reference's f32 accumulate keeps them apart).
 template <typename T>
 __device__ __forceinline__ void apply_delta_smem(T* ws, const float (&z)[kTM][kTN], float d,
                                                  float sc) {
@@ -358,19 +265,148 @@ __device__ __forceinline__ void apply_delta_smem(T* ws, const float (&z)[kTM][kT
     }
 }
 
-// The chain's deltas in order; taus is [k][r] for this tile's matrix.
-template <typename T>
-__device__ __forceinline__ void delta_chain(float (&w)[kTM][kTN], const float* __restrict__ u,
-                                            const float* __restrict__ v,
-                                            const float* __restrict__ taus,
-                                            const DeltaChain& ch, const Tile& t,
-                                            RankSmem& sm) {
-  for (int s = 0; s < ch.k; ++s) {
-    float z[kTM][kTN];
-    rank_r_product<false>(z, u, v, taus + static_cast<size_t>(s) * t.r, t, sm);
-    apply_delta<T>(w, z, ch.decay[s], ch.scale[s]);
+// A chunk of rank columns c0 .. c0 + kRC - 1 as it lies in the a-side's
+// rows, the b-side's rows and tau (pitch kRP: 16-byte rows, a transposing
+// read 4-way at most).
+constexpr int kRP = kRC + 4;
+struct RawFactors {
+  float u[kBM][kRP];
+  float v[kBN][kRP];
+  float tau[kRC];
+};
+
+// One factor's rows for this tile (rows row0 .. row0 + rows - 1, rank
+// columns c0 .. c0 + jn - 1) into dst [rows][kRP]: 16-byte copies where vec
+// (r a multiple of 4, an aligned base), else 4-byte ones; zeros at rows >=
+// limit.  Part of the caller's commit group.
+template <int kRows>
+__device__ __forceinline__ void stage_rows(float (*dst)[kRP], const float* __restrict__ src,
+                                           int row0, int limit, int r, int c0, int jn,
+                                           bool vec) {
+  if (vec) {
+    for (int idx = threadIdx.x; idx < kRows * (kRC / 4); idx += kThreads) {
+      const int i = idx / (kRC / 4), q = idx % (kRC / 4), row = row0 + i;
+      if (4 * q >= jn) continue;
+      const bool ok = row < limit;
+      cp_async16(&dst[i][4 * q], src + static_cast<size_t>(ok ? row : 0) * r + c0 + 4 * q, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kRows * kRC; idx += kThreads) {
+      const int i = idx / kRC, j = idx % kRC, row = row0 + i;
+      if (j >= jn) continue;
+      const bool ok = row < limit;
+      cp_async4(&dst[i][j], src + static_cast<size_t>(ok ? row : 0) * r + c0 + j, ok);
+    }
   }
 }
+
+// tau's chunk c0 .. c0 + jn - 1 into dst, part of the caller's commit group.
+__device__ __forceinline__ void stage_tau(float* dst, const float* __restrict__ tau, int c0,
+                                          int jn, bool vec) {
+  if (vec) {
+    if (4 * static_cast<int>(threadIdx.x) < jn)
+      cp_async16(dst + 4 * threadIdx.x, tau + c0 + 4 * threadIdx.x, true);
+  } else if (static_cast<int>(threadIdx.x) < jn) {
+    cp_async4(dst + threadIdx.x, tau + c0 + threadIdx.x, true);
+  }
+}
+
+// What a delta's chunk stages, and transposes: the a-side rows, the b-side
+// rows, tau (the a-side's scale).  A later delta of a one-chunk rank
+// restages only what changed: TeZO's tau, LOZO's fresh b-side (V), SubZO's
+// a-side (U * Sigma_s).
+struct Parts {
+  bool u, v, tau;
+};
+
+// The chunk's factor rows into raw, one commit group.
+__device__ __forceinline__ void stage_factors(RawFactors& raw, const float* __restrict__ u,
+                                              const float* __restrict__ v,
+                                              const float* __restrict__ tau, const Tile& t,
+                                              int c0, Parts parts, bool vec) {
+  const int jn = min(kRC, t.r - c0);
+  if (parts.u) stage_rows<kBM>(raw.u, u, t.row0, t.m, t.r, c0, jn, vec);
+  if (parts.v) stage_rows<kBN>(raw.v, v, t.col0, t.n, t.r, c0, jn, vec);
+  if (parts.tau) stage_tau(raw.tau, tau, c0, jn, vec);
+  cp_async_commit();
+}
+
+// The raw chunk into the staging tile: sm.a[j][i] = u[row0 + i, c0 + j] *
+// tau[c0 + j] (kTau; the product rounded as the reference's elementwise
+// product) or u as it is, sm.b[j][l] = v[col0 + l, c0 + j], for the chunk's
+// jn columns; the a-side where parts.u or parts.tau, the b-side where
+// parts.v.  The caller synchronises around it.
+template <bool kTau>
+__device__ __forceinline__ void transpose_factors(RankSmem& sm, const RawFactors& raw, int jn,
+                                                  Parts parts) {
+  if (parts.u || parts.tau) {
+    for (int idx = threadIdx.x; idx < kBM * kRC; idx += kThreads) {
+      const int i = idx / kRC, j = idx % kRC;
+      if (j < jn) sm.a[j][i] = kTau ? __fmul_rn(raw.u[i][j], raw.tau[j]) : raw.u[i][j];
+    }
+  }
+  if (parts.v) {
+    for (int idx = threadIdx.x; idx < kBN * kRC; idx += kThreads) {
+      const int l = idx % kBN, j = idx / kBN;
+      if (j < jn) sm.b[j][l] = raw.v[l][j];
+    }
+  }
+}
+
+// The chain of deltas over one tile, W through shared memory (ws, T
+// [kBM][kBN]) and the factors through raw and sm.  Src names delta s's
+// a-side rows (src.a(s), [m][r]), b-side rows (src.b(s), [n][r]) and tau
+// (src.tau_of(s), [r]; read where kTau), and src.later(), what a later delta of
+// a one-chunk rank restages.  Chunks run in order (delta s, rank columns
+// c0); a chunk's copies are issued as soon as the previous one is
+// transposed, so they overlap its product, and the first chunk's copies
+// are issued before the W tile's, so the first product waits for the
+// factors alone.  Each delta's chunks go through rank_fma in ascending
+// column order into Z (registers), then apply_delta_smem.
+template <typename T, bool kTau, typename Src>
+__device__ __forceinline__ void chain_pass(T* ws, RawFactors& raw, RankSmem& sm, const T* w,
+                                           T* out, const Src& src, const DeltaChain& chain,
+                                           const Tile& t, bool vec, bool vec_f) {
+  const int r = t.r;
+  const Parts all{true, true, kTau};
+  const auto parts_of = [&](int s) { return s > 0 && r <= kRC ? src.later() : all; };
+  stage_factors(raw, src.a(0), src.b(0), src.tau_of(0), t, 0, all, vec_f);
+  stage_w_tile(ws, w, t, vec);
+  bool next_issued = false;
+  for (int s = 0; s < chain.k; ++s) {
+    float z[kTM][kTN];
+    zero(z);
+    for (int c0 = 0; c0 < r; c0 += kRC) {
+      if (s == 0 && c0 == 0)
+        cp_async_wait<1>();  // the factors; the W tile may still be in flight
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // this chunk is in, whoever copied it; the last product is done
+      const int jn = min(kRC, r - c0);
+      transpose_factors<kTau>(sm, raw, jn, parts_of(s));
+      __syncthreads();  // raw is free again
+      const int ns = c0 + kRC < r ? s : s + 1, nc0 = c0 + kRC < r ? c0 + kRC : 0;
+      next_issued = ns < chain.k;
+      if (next_issued)
+        stage_factors(raw, src.a(ns), src.b(ns), src.tau_of(ns), t, nc0, parts_of(ns), vec_f);
+      rank_fma(z, sm, jn);
+    }
+    if (s == 0) {  // the W tile (issued before any next chunk's copies)
+      if (next_issued)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // the tile is in, whoever copied each element
+    }
+    apply_delta_smem<T>(ws, z, chain.decay[s], chain.scale[s]);
+  }
+  __syncthreads();
+  store_w_tile(out, ws, t, vec);
+}
+
+// chain_pass's dynamic shared memory: the W tile, then the raw chunk.
+template <typename T>
+constexpr size_t kChainSmem = sizeof(T) * kBM * kBN + sizeof(RawFactors);
 
 }  // namespace tezo
 

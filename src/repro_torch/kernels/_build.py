@@ -132,8 +132,8 @@ _SIGNATURES = {
     "tezo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
     # w, out, u, the k V factors, chain, B, m, n, r, dtype, stream
     "lozo_chain_fwd": [_P] * 3 + [FactorList, DeltaChain] + [_I] * 5 + [_P],
-    # w, out, u, v, sigma, chain, B, m, n, r, dtype, stream
-    "subzo_perturb_fwd": [_P] * 5 + [DeltaChain] + [_I] * 5 + [_P],
+    # w, out, u, v, sigma, U·Σ scratch, chain, B, m, n, r, dtype, stream
+    "subzo_perturb_fwd": [_P] * 6 + [DeltaChain] + [_I] * 5 + [_P],
     # w, out, u, v, tau_m, tau_v, tau_r, restore chain, -lr, eps, decay,
     # B, m, n, r, dtype, stream
     "tezo_adam_update_fwd": [_P] * 7 + [DeltaChain, _F, _F, _F] + [_I] * 5 + [_P],

@@ -11,13 +11,12 @@ from the device.
 
 Replaces the TPU kernel ``repro/kernels/zo_noise.py::subzo_perturb``
 (through ``repro.kernels.ops.subzo_perturb``).  The kernel is
-``csrc/subzo_perturb.cu``: one launch per leaf over (column tiles, row
-tiles, batch index), W held in registers for the whole chain; per delta the
-block forms its rows of U·Σ_s in shared memory and sums them against V's
-columns, so neither Z nor U·Σ reaches device memory.  Σ fits shared
-memory whole up to r = 64; above that the kernel stages it in column
-chunks and accumulates Z across them in f32 before each delta's one
-rounding, up to r = ``MAX_RANK``.  It writes in place unless ``out`` names
+``csrc/subzo_perturb.cu``, two launches a call: the first forms U·Σ_s once
+per leaf and delta into an f32 scratch ``[..., k, m, r]`` that this wrapper
+takes from the caching allocator; the second is ``tezo_perturb``'s weight
+pass over (column tiles, row tiles, batch index), W through shared memory,
+with U·Σ_s as the a-side and V as the b-side, so Z never reaches device
+memory.  r runs up to ``MAX_RANK``.  It writes in place unless ``out`` names
 another buffer of W's shape.
 
 On a CPU tensor :func:`subzo_perturb` runs :func:`subzo_perturb_plain`; on a
@@ -37,7 +36,7 @@ from repro_torch.kernels.tezo_perturb import (
     check_factors,
 )
 
-MAX_RANK = 4096  # csrc/subzo_perturb.cu kSigmaFloats: one column of Σ per stage
+MAX_RANK = 4096  # csrc/subzo_perturb.cu kMaxRank
 
 
 def subzo_perturb_plain(w, u, v, sigmas, scales, decay=None, out=None):
@@ -72,9 +71,11 @@ def subzo_perturb(w, u, v, sigmas, scales, decay=None, out=None):
     chain = _build.DeltaChain.of(scales, _decays(k, decay))
     lib = _build.load()
     with torch.cuda.device(w.device):
+        us = torch.empty((B, k, m, r), dtype=torch.float32, device=w.device)  # U·Σ_s
         err = lib.subzo_perturb_fwd(
             w.data_ptr(), out.data_ptr(), u.data_ptr(), v.data_ptr(), sigmas.data_ptr(),
-            chain, B, m, n, r, _DTYPES[w.dtype], torch.cuda.current_stream().cuda_stream,
+            us.data_ptr(), chain, B, m, n, r, _DTYPES[w.dtype],
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "subzo_perturb_fwd")
     subzo_perturb.launches += 1

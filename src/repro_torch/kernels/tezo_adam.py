@@ -9,9 +9,10 @@ dtype, exactly as a ``tezo_perturb`` chain), then
 
 Replaces the TPU kernel ``repro/kernels/tezo_adam.py::tezo_adam_update``
 (through ``repro.kernels.ops.tezo_adam_update``).  The kernel is
-``csrc/tezo_adam.cu``: the tiling of ``csrc/tezo_perturb.cu``, whose delta
-device function it runs for the restore, and two more rank-r sums for M and
-V that stay in registers.  Shapes: W ``[..., m, n]``, u ``[..., m, r]``,
+``csrc/tezo_adam.cu``: the tiling and the shared-memory weight stream of
+``csrc/tezo_perturb.cu``, whose staging, sums and rounding it runs for the
+restore, then M and V summed in one sweep from one staging of u and v per
+32 rank columns; neither reaches device memory.  Shapes: W ``[..., m, n]``, u ``[..., m, r]``,
 v ``[..., n, r]``, τ_M and τ_V ``[..., r]``, τ_r ``[..., k, r]`` (all f32);
 ``lr``, ``eps``, ``decay`` and the restore scales are host floats.  It writes
 in place unless ``out`` names another buffer.

@@ -395,6 +395,62 @@ def test_subzo_kernel_rejects_bad_operands(cuda):
         tsub.subzo_perturb(w, u, u, torch.zeros(2, 4, 4, device=cuda), [1.0])
 
 
+# the weight passes' rank chunks (32 columns) and factor copies (16-byte
+# where r % 4 == 0, else 4-byte) on rows that take the 16-byte W path
+# (264 bf16 columns) and rows that do not (257)
+RANK_SWEEP = [12, 24, 33, 64, 65, 96, 130]
+
+
+@pytest.mark.parametrize("r", RANK_SWEEP)
+@pytest.mark.parametrize("shape", [(2, 150, 264), (130, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_kernels_across_ranks(cuda, r, shape, dtype):
+    """tezo_adam_update (restores of 0, 1 and 2 deltas) and subzo_perturb
+    (k = 1, 2) against their plain versions; the folded restore bitwise
+    the perturb launch then the Adam launch, SubZO's chain bitwise its
+    single launches, and out= leaving W untouched, for each."""
+    *batch, m, n = shape
+    w = _randn(shape, cuda, 11, 0.1).to(dtype)
+    u, v = _randn((*batch, m, r), cuda, 12, 1.0), _randn((*batch, n, r), cuda, 13, 1.0)
+    taus = _randn((*batch, 2, r), cuda, 14, 1.0)
+    tm, tv = _randn((*batch, r), cuda, 15, 0.3), _randn((*batch, r), cuda, 16, 0.3) ** 2
+    uo, vo = _orthonormal((*batch, m, r), cuda, 17), _orthonormal((*batch, n, r), cuda, 18)
+    sig = _randn((*batch, 2, r, r), cuda, 19, 1.0)
+    scales = [1e-3, -2e-3]
+
+    def close(got, want):
+        if dtype == torch.float32:
+            return (got - want).abs().max().item() <= 1e-5
+        return _within_bf16_ulp(got, want, w)
+
+    for k in (0, 1, 2):
+        tr = taus[..., :k, :].contiguous() if k else None
+        got = tadam.tezo_adam_update(w.clone(), u, v, tm, tv, 1e-3, 1e-5, tau_r=tr,
+                                     restore_scale=scales[:k])
+        want = tadam.tezo_adam_update_plain(w.clone(), u, v, tm, tv, 1e-3, 1e-5, tau_r=tr,
+                                            restore_scale=scales[:k])
+        assert close(got, want), k
+        if k:
+            two = tadam.tezo_adam_update(tpert.tezo_perturb(w.clone(), u, v, tr, scales[:k]),
+                                         u, v, tm, tv, 1e-3, 1e-5)
+            assert torch.equal(got, two), k
+    for k in (1, 2):
+        sk = sig[..., :k, :, :].contiguous()
+        got = tsub.subzo_perturb(w.clone(), uo, vo, sk, scales[:k], decay=0.99)
+        want = tsub.subzo_perturb_plain(w.clone(), uo, vo, sk, scales[:k], decay=0.99)
+        assert close(got, want), k
+        single = w.clone()
+        for s in range(k):
+            single = tsub.subzo_perturb(single, uo, vo, sig[..., s:s + 1, :, :].contiguous(),
+                                        [scales[s]], decay=0.99 if s == k - 1 else None)
+        assert torch.equal(got, single), k
+    before, out = w.clone(), torch.empty_like(w)
+    tadam.tezo_adam_update(w, u, v, tm, tv, 1e-3, 1e-5, tau_r=taus, restore_scale=scales,
+                           out=out)
+    tsub.subzo_perturb(w, uo, vo, sig, scales, out=out)
+    assert torch.equal(w, before)
+
+
 @pytest.mark.parametrize("shape,r", [((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12),
                                      ((130, 257), 24), ((2, 300, 256), 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
