@@ -51,48 +51,11 @@ namespace {
 
 using noise::kCols;
 using noise::kThreads;
+using noise::load;
+using noise::packable;
+using noise::store;
 
 enum Variant { kSgd = 0, kMomentum = 1, kAdam = 2 };
-
-// A thread's kCols neighbouring elements as one vector access (8 bytes of
-// bf16, 16 of f32); used where every group of the leaf is whole and each
-// buffer aligned (all of opt-125m's leaves), else column by column with the
-// ragged edge masked.
-template <typename T>
-struct alignas(sizeof(T) * kCols) Pack {
-  T v[kCols];
-};
-
-template <typename T>
-__device__ __forceinline__ bool packable(const T* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % sizeof(Pack<T>) == 0;
-}
-
-template <typename T>
-__device__ __forceinline__ void load(const T* p, float (&x)[kCols], int cols, bool vec) {
-  if (vec) {
-    const Pack<T> pk = *reinterpret_cast<const Pack<T>*>(p);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) x[c] = to_f32(pk.v[c]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) x[c] = c < cols ? to_f32(p[c]) : 0.f;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store(T* p, const float (&x)[kCols], int cols, bool vec) {
-  if (vec) {
-    Pack<T> pk;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) pk.v[c] = from_f32<T>(x[c]);
-    *reinterpret_cast<Pack<T>*>(p) = pk;
-  } else {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      if (c < cols) p[c] = from_f32<T>(x[c]);
-  }
-}
 
 template <typename T, int kVariant>
 __global__ void __launch_bounds__(kThreads) noise_update_kernel(

@@ -143,8 +143,14 @@ def test_flash_kernel_rejects_wide_heads(cuda):
         tflash.flash_attention(q, q, q)
 
 
+SCAN_ATOL = 1e-5  # of the largest |y| (or |h|): expf against torch.exp in the last ulp
 SCAN_CASES = [  # B, S, D, N: the training shape, ragged D and S, S = 1, N of 4 and 64
     (8, 128, 3200, 16), (2, 37, 100, 16), (3, 1, 100, 16), (1, 50, 24, 4), (2, 20, 70, 64),
+    # N of 5, 32 and 64 at S = 1 and over several staged 16-step chunks with a
+    # ragged last one; D not a multiple of 4 (the x and dt staging's 4-byte
+    # copies); batches wide enough that the kernel gives a lane 2 or 4 states
+    (2, 53, 100, 5), (1, 1, 3200, 32), (2, 70, 64, 32), (1, 33, 40, 64), (3, 1, 36, 64),
+    (2, 49, 101, 16), (16, 40, 3200, 16), (8, 37, 3200, 16),
 ]
 
 
@@ -169,14 +175,28 @@ def test_scan_kernel_vs_plain(cuda, B, S, D, N):
     assert tscan.selective_scan.launches == n0 + 1
     y_p, h_p = tscan.selective_scan_plain(*args)
     scale = max(1.0, y_p.abs().max().item())
-    assert (y - y_p).abs().max().item() <= 1e-5 * scale
-    assert (h - h_p).abs().max().item() <= 1e-5 * max(1.0, h_p.abs().max().item())
+    assert (y - y_p).abs().max().item() <= SCAN_ATOL * scale
+    assert (h - h_p).abs().max().item() <= SCAN_ATOL * max(1.0, h_p.abs().max().item())
     if S > 1:
         x, dt, a, b, c, h0 = args
         cut = S // 3
         y1, h1 = tscan.selective_scan(x[:, :cut], dt[:, :cut], a, b[:, :cut], c[:, :cut], h0)
         y2, h2 = tscan.selective_scan(x[:, cut:], dt[:, cut:], a, b[:, cut:], c[:, cut:], h1)
         assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h)
+
+
+@pytest.mark.parametrize("N", [5, 16, 32, 64])
+def test_scan_rows_are_bitwise_across_batches(cuda, N):
+    """The kernel gives a lane 1, 2 or 4 states by the grid's size; every
+    instance runs the same arithmetic, so a batch row scanned within a wide
+    batch is bitwise that row scanned alone."""
+    args = _scan_inputs(16, 40, 3200, N, cuda, seed=N)
+    y, h = tscan.selective_scan(*args)
+    x, dt, a, b, c, h0 = args
+    for r in (0, 7, 15):
+        y1, h1 = tscan.selective_scan(x[r:r + 1], dt[r:r + 1], a, b[r:r + 1], c[r:r + 1],
+                                      h0[r:r + 1])
+        assert torch.equal(y1[0], y[r]) and torch.equal(h1[0], h[r]), r
 
 
 def test_scan_dispatch_launches_at_every_length(cuda):
@@ -561,6 +581,68 @@ def test_noise_kernels_vs_plain(cuda, shape, dtype):
     before = w.clone()
     tnoise.noise_perturb(w, seed, [0, 1], scales[:2], out=out)
     assert torch.equal(w, before) and not torch.equal(out, before)
+
+
+def test_noise_perturb_large_leaf_is_the_stream(cuda):
+    """On zeros at scale 1 the perturbed leaf is z itself: a leaf of more
+    than 2^24 elements with an odd row length (most threads' four columns
+    unaligned, a ragged end on every row) is bitwise the plain stream."""
+    seed = tnoise.leaf_seed(PRNGKey(5), "['embed']")
+    for probes, scales in (([0], [1.0]), ([3, 1], [1.0, 1.0])):
+        got = tnoise.noise_perturb(torch.zeros(4100, 4099, device=cuda), seed, probes, scales)
+        want = tnoise.noise_perturb_plain(torch.zeros(4100, 4099, device=cuda), seed, probes,
+                                          scales)
+        assert got.numel() > 1 << 24 and torch.equal(got, want), probes
+
+
+def test_noise_draw_where_u1_rounds_to_one(cuda):
+    """Once in 2^24 draws the counter's top 24 bits are all set, u1 rounds
+    to 1 and Box-Muller's radius is sqrt(-2 log 1) = sqrt(-0): z = 0 there,
+    as in the plain stream (a Newton step from rsqrt(-0) would give NaN)."""
+    seed = tnoise.leaf_seed(PRNGKey(6), "['lm_head']")
+    for probe in range(32):
+        want = tnoise.noise_perturb_plain(torch.zeros(4100, 4099, device=cuda), seed, [probe],
+                                          [1.0])
+        if bool((want == 0).any()):
+            got = tnoise.noise_perturb(torch.zeros(4100, 4099, device=cuda), seed, [probe],
+                                       [1.0])
+            assert torch.equal(got, want), probe
+            return
+    pytest.fail("no draw with u1 = 1 in 32 probes of 16.8 M elements")
+
+
+@pytest.mark.parametrize("shape", [(50, 40), (3, 24, 137), (12, 768), (2, 3200, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_kernels_on_unaligned_leaf(cuda, shape, dtype):
+    """A leaf that starts one element into its buffer (not 8-byte aligned)
+    takes the scalar accesses, with the same bits as the plain version."""
+    seed = tnoise.leaf_seed(PRNGKey(4), "['blocks']['w_up']")
+    n = math.prod(shape)
+    w = _randn(shape, cuda, 6, 0.1).to(dtype)
+
+    def shifted(t):
+        return torch.empty(n + 1, dtype=t.dtype, device=cuda)[1:].view(shape).copy_(t)
+
+    probes, scales = [0, 1, 2], [1e-3, -2e-3, 1e-3]
+    for k in (1, 2, 3):
+        x = shifted(w)
+        assert x.data_ptr() % 8 != 0
+        got = tnoise.noise_perturb(x, seed, probes[:k], scales[:k])
+        assert torch.equal(got, tnoise.noise_perturb_plain(w.clone(), seed, probes[:k],
+                                                           scales[:k])), k
+        out = shifted(torch.zeros_like(w))
+        tnoise.noise_perturb(w, seed, probes[:k], scales[:k], out=out)
+        assert torch.equal(out, got), k
+    kap = torch.tensor([0.7], device=cuda)
+    m0, v0 = _randn(shape, cuda, 2, 0.01), _randn(shape, cuda, 3, 0.1) ** 2
+    got = tnoise.noise_update(shifted(w), seed, kap, "adam", 1e-3, 0.9, 0.99, 1e-5,
+                              m_buf=shifted(m0), v_buf=shifted(v0), restore_probes=[0],
+                              restore_scales=[1e-3])
+    want = tnoise.noise_update_plain(w.clone(), seed, kap, "adam", 1e-3, 0.9, 0.99, 1e-5,
+                                     m_buf=m0.clone(), v_buf=v0.clone(), restore_probes=[0],
+                                     restore_scales=[1e-3])
+    assert _ulp_close(got[0], want[0], w) and all(torch.equal(a, b)
+                                                  for a, b in zip(got[1:], want[1:]))
 
 
 def test_noise_kernels_reject_bad_operands(cuda):

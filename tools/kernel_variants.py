@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Variants of the port's redesigned weight kernels, built from edited
+"""Variants of the port's redesigned kernels, built from edited
 copies of their sources and measured beside the real build on one card.
 
-    python3 tools/kernel_variants.py [--kernels quant_matmul,tezo_perturb,...]
+    python3 tools/kernel_variants.py [--kernels quant_matmul,selective_scan,...]
                                         # from the root of a checkout, on a card
 
 There is no ``ncu`` on the card's machine, so a design choice is measured by
@@ -45,6 +45,37 @@ weight; ``bar_ratio`` > 1 fails) at the run's lr and at 1e-3, and its
 folded restore against a tezo_perturb launch followed by its own launch
 without the restore (bitwise, as chained == unchained needs).
 
+selective_scan (f32, at chip_smoke.py's SCAN_TIME_CASES: the training
+forward, a decode step and the serve phase's two prefills): states1,
+states2 and states4 (a lane owns 1, 2 or 4 states at every shape, in place
+of the choice by the wave), no_staging (x and dt read from device memory in
+the time loop) and row (the thread-per-row body the kernel replaced: one
+thread carries a channel's 16 states, B and C staged, x, dt and y in the
+time loop); and, to weigh the parts, no_sum (y is one product: the sum
+over n left out), no_bc_reads (the (B, C) pairs constants, not read from
+shared memory), no_prod_writes (the products h * C not written: the sums
+read stale rows), no_sync (the ring's per-chunk cp.async wait and the
+block's two barriers per chunk left out: y wrong, the cost of the syncs),
+fast_exp (the approximate __expf) and unroll1 (the
+product batch's steps not unrolled).  Each says whether its y and h_last
+are bitwise the kernel's.  rows1 (each lane sums one (step, channel) row
+a product batch: half the steps between warp syncs), chunk16 (16 steps a
+stage), fewest_states (one state a lane wherever one wave holds
+that grid), blocks8 (at most 64 registers: eight blocks an SM) and
+threads64 / threads256 (the block size) are the layout's alternatives.
+
+noise_perturb (bf16, the k = 1 pass over full-width opt-125m's ten eligible
+leaves from a seeded init): branchy_cos (glibc's two-path cosine and its
+sine / cosine branch), unrolled_scalar (the unrolled draw, scalar accesses),
+scalar (the column loop that leaves at the ragged edge, one draw at a time
+with the chain's length read at run time, scalar accesses: the body the
+kernel replaced), generic_chain (the chain's length read at run time),
+thread_key (every thread derives its stacked slice's key, not thread 0
+once a block), threads128 / threads512 (the block size), and, to weigh the parts of a
+draw, no_cos (z = r * u2) and no_threefry (the counter words xor-ed with
+the key in place of the 20 rounds).  Each says whether its output is
+bitwise the kernel's.
+
 Times are device time per call (chip_smoke.timed); the card's name and power
 limit lead the output.  Each subzo_perturb and tezo_adam_update variant that
 computes the same function says whether its output is bitwise the real
@@ -63,8 +94,17 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+
+
+def _between(name: str, start: str, end: str) -> str:
+    """The text of csrc/<name> from ``start`` up to ``end``."""
+    text = (CSRC / name).read_text()
+    i = text.index(start)
+    return text[i:text.index(end, i)]
+
 
 QMM_VARIANTS = {
     "one_level": [("mma_bf16(gacc[mb][nb], a[mb]", "mma_bf16(acc[mb][nb], a[mb]"),
@@ -252,19 +292,213 @@ ADAM_VARIANTS = {
     ],
 }
 
+# the thread-per-row scan: one thread carries a channel's N states in
+# registers, B and C staged per 32 steps, x, dt and y in the time loop
+ROW_SCAN = """
+constexpr int kRowThreads = 128, kRowChunk = 32;
+
+template <int NMAX>
+__global__ void __launch_bounds__(kRowThreads) scan_row_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+    const float* __restrict__ bm, const float* __restrict__ cm, const float* __restrict__ h0,
+    float* __restrict__ y, float* __restrict__ h_last, int S, int D, int N) {
+  __shared__ float bs[kRowChunk][NMAX];
+  __shared__ float cs[kRowChunk][NMAX];
+  const int b = blockIdx.y;
+  const int d = blockIdx.x * kRowThreads + threadIdx.x;
+  const bool valid = d < D;
+  float h[NMAX], ar[NMAX];
+  const size_t hrow = (static_cast<size_t>(b) * D + (valid ? d : 0)) * N;
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) {
+    const bool in = valid && n < N;
+    h[n] = in ? h0[hrow + n] : 0.f;
+    ar[n] = in ? a[static_cast<size_t>(d) * N + n] : 0.f;
+  }
+  const float* brow = bm + static_cast<size_t>(b) * S * N;
+  const float* crow = cm + static_cast<size_t>(b) * S * N;
+  for (int t0 = 0; t0 < S; t0 += kRowChunk) {
+    const int steps = min(kRowChunk, S - t0);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < steps * N; idx += kRowThreads) {
+      const int j = idx / N, n = idx % N;
+      bs[j][n] = brow[static_cast<size_t>(t0 + j) * N + n];
+      cs[j][n] = crow[static_cast<size_t>(t0 + j) * N + n];
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < steps; ++j) {
+      const size_t off = (static_cast<size_t>(b) * S + t0 + j) * D + d;
+      const float dt_t = dt[off];
+      const float u = __fmul_rn(dt_t, x[off]);
+      float acc = 0.f;
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < N) {
+          const float da = expf(__fmul_rn(dt_t, ar[n]));
+          h[n] = __fadd_rn(__fmul_rn(da, h[n]), __fmul_rn(u, bs[j][n]));
+          acc = __fadd_rn(acc, __fmul_rn(h[n], cs[j][n]));
+        }
+      }
+      y[off] = acc;
+    }
+  }
+  if (valid) {
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n)
+      if (n < N) h_last[hrow + n] = h[n];
+  }
+}
+
+int launch_row(const float* x, const float* dt, const float* a, const float* b, const float* c,
+               const float* h0, float* y, float* h_last, int B, int S, int D, int N,
+               cudaStream_t st) {
+  const dim3 grid((D + kRowThreads - 1) / kRowThreads, B);
+  if (N <= 16)
+    scan_row_kernel<16><<<grid, kRowThreads, 0, st>>>(x, dt, a, b, c, h0, y, h_last, S, D, N);
+  else if (N <= 32)
+    scan_row_kernel<32><<<grid, kRowThreads, 0, st>>>(x, dt, a, b, c, h0, y, h_last, S, D, N);
+  else
+    scan_row_kernel<64><<<grid, kRowThreads, 0, st>>>(x, dt, a, b, c, h0, y, h_last, S, D, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace repro_torch
+"""
+# x and dt left out of the ring and read from device memory in the time loop
+NO_STAGING = [
+    ("  if (vec_x) {  // D % 4 == 0: whole 16-byte pieces, cols a multiple of 4\n",
+     "  if (false) {\n  if (vec_x) {\n"),
+    ("  const size_t boff = (static_cast<size_t>(b) * S + t0) * N;",
+     "  }\n  const size_t boff = (static_cast<size_t>(b) * S + t0) * N;"),
+    ("                                        int j0, int steps, int ch, int l) {",
+     "                                        const float* __restrict__ gdt,\n"
+     "                                        const float* __restrict__ gx, int D,\n"
+     "                                        int j0, int steps, int ch, int l) {"),
+    ("const float dt_t = dtc[j * L::kChannels + ch];",
+     "const float dt_t = gdt[static_cast<size_t>(j) * D];"),
+    ("const float u = __fmul_rn(dt_t, xc[j * L::kChannels + ch]);",
+     "const float u = __fmul_rn(dt_t, gx[static_cast<size_t>(j) * D]);"),
+    ("      advance<L, NPAD, SPL>(h, ar, dtc, xc, bcc, prod + wc, j0, steps, ch, l);",
+     "      const size_t g0 = (static_cast<size_t>(b) * S + t0) * D + (valid ? d : 0);\n"
+     "      advance<L, NPAD, SPL>(h, ar, dtc, xc, bcc, prod + wc, dt + g0, x + g0, D, j0, steps,"
+     " ch, l);"),
+]
+SCAN_VARIANTS = {
+    **{f"states{k}": [("return launch_fitting<16, 2, 4>(", f"return launch<16, {k}>(")]
+       for k in (1, 2, 4)},
+    "no_staging": NO_STAGING,
+    "no_sum": [("for (int n = 0; n < NPAD; ++n) acc = __fadd_rn(acc, prod[n * L::kPitch + row]);",
+                "acc = prod[row];")],
+    "no_bc_reads": [("          const float4 v = q[s / 2];",
+                     "          const float4 v = make_float4(0.5f, 0.25f, 0.5f, 0.25f);")],
+    "no_prod_writes": [
+        ("        p[jj * L::kWarpChannels + n * L::kPitch] = __fmul_rn(h[s], bc.y);\n", "")],
+    # the ring's per-chunk wait and the two block barriers left out (one
+    # wait at the end, so no copy is in flight when the block leaves)
+    "no_sync": [("    cp_async_wait<0>();\n    // chunk c", "    // chunk c"),
+                ("    __syncthreads();\n    if (c + 1 < chunks) {", "    if (c + 1 < chunks) {"),
+                ("    __syncthreads();  // the chunk's y is whole\n", ""),
+                ("\n  if (valid) {\n#pragma unroll",
+                 "\n  cp_async_wait<0>();\n  if (valid) {\n#pragma unroll")],
+    "fast_exp": [("const float da = expf(", "const float da = __expf(")],
+    "unroll1": [("#pragma unroll\n  for (int jj = 0;", "#pragma unroll 1\n  for (int jj = 0;")],
+    "rows1": [("constexpr int kSumRows = 2;", "constexpr int kSumRows = 1;")],
+    "chunk16": [("constexpr int kChunk = 32;", "constexpr int kChunk = 16;")],
+    "fewest_states": [("launch_fitting<16, 2, 4>(", "launch_fitting<16, 1, 2, 4>(")],
+    "blocks8": [("__global__ void __launch_bounds__(kThreads) selective_scan_kernel(",
+                 "__global__ void __launch_bounds__(kThreads, 8) selective_scan_kernel(")],
+    **{f"threads{t}": [("constexpr int kThreads = 128;", f"constexpr int kThreads = {t};")]
+       for t in (64, 256)},
+    "row": [("\n}  // namespace\n}  // namespace repro_torch\n", ROW_SCAN),
+            ("  if (N <= 16) return launch_fitting<16, 2, 4>(",
+             "  if (N <= 64) return launch_row(x, dt, a, b, c, h0, y, h_last, B, S, D, N, st);\n"
+             "  if (N <= 16) return launch_fitting<16, 2, 4>(")],
+}
+# glibc's cosine as two paths (below pi/4, and the reduction) and a sine /
+# cosine branch, as the kernel first ran it
+BRANCHY_COS = """// glibc's cosf, branching as glibc does
+__device__ __forceinline__ double cos_poly(double x, double x2, double sgn, bool odd) {
+  if (!odd) {  // sine
+    const double x3 = __dmul_rn(x, x2);
+    const double s1 = __dadd_rn(0x1.1107605230bc4p-7, __dmul_rn(x2, -0x1.994eb3774cf24p-13));
+    const double x7 = __dmul_rn(x3, x2);
+    const double s = __dadd_rn(x, __dmul_rn(x3, -0x1.555545995a603p-3));
+    return __dadd_rn(s, __dmul_rn(x7, s1));
+  }
+  const double x4 = __dmul_rn(x2, x2);  // cosine: sgn flips the table's signs
+  const double c2 = __dadd_rn(sgn * -0x1.6c087e89a359dp-10,
+                              __dmul_rn(x2, sgn * 0x1.99343027bf8c3p-16));
+  const double c1 = __dadd_rn(sgn * 1.0, __dmul_rn(x2, sgn * -0x1.ffffffd0c621cp-2));
+  const double x6 = __dmul_rn(x4, x2);
+  const double c = __dadd_rn(c1, __dmul_rn(x4, sgn * 0x1.55553e1068f19p-5));
+  return __dadd_rn(c, __dmul_rn(x6, c2));
+}
+
+__device__ __forceinline__ float glibc_cosf(float y) {
+  const uint32_t top = (__float_as_uint(y) >> 20) & 0x7ff;
+  const double x = static_cast<double>(y);
+  if (top < 0x3f4u) {  // below pi/4 (abstop12)
+    if (top < 0x398u) return 1.f;  // below 2^-12
+    return __double2float_rn(cos_poly(x, __dmul_rn(x, x), 1.0, true));
+  }
+  const double r = __dmul_rn(x, 0x1.45F306DC9C883p+23);
+  const int n = (__double2int_rz(r) + 0x800000) >> 24;
+  const double xr = __dsub_rn(x, __dmul_rn(static_cast<double>(n), 0x1.921FB54442D18p0));
+  const double s = ((n & 3) == 1 || (n & 3) == 2) ? -1.0 : 1.0;
+  return __double2float_rn(cos_poly(__dmul_rn(xr, s), __dmul_rn(xr, xr), (n & 2) ? -1.0 : 1.0,
+                                    ((n ^ 1) & 1) != 0));
+}
+
+"""
+NOISE_VEC = ("  const bool vec = cols == kCols && noise::packable(w + i0) && "
+             "noise::packable(out + i0);")
+NOISE_BODY = _between("noise_perturb.cu", "  const int cols = min(kCols, n - p.col0);",
+                      "}\n\ntemplate <typename T, int K>\nint launch(")
+ROW_NOISE_BODY = """#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const int col = p.col0 + c;
+    if (col >= n) break;
+    const size_t i = p.base + col;
+    float z;
+    const float v = noise::chain<T>(to_f32(w[i]), ch, s0, s1, p.row, col, z);
+    out[i] = from_f32<T>(v);
+  }
+"""
+NOISE_VARIANTS = {
+    "branchy_cos": [(_between("zo_noise.cuh", "// glibc's cosf (sysdeps/ieee754/flt-32",
+                              "// z ~ N(0, 1)"), BRANCHY_COS)],
+    "unrolled_scalar": [(NOISE_VEC, "  const bool vec = false;")],
+    "scalar": [(NOISE_BODY, ROW_NOISE_BODY)],
+    "generic_chain": [("noise::chain<T, K>(", "noise::chain<T>(")],
+    "thread_key": [(_between("noise_perturb.cu", "  __shared__ uint32_t key[2];",
+                             "  const uint32_t s0 = key[0], s1 = key[1];\n"),
+                    "  noise::Place p;\n  if (!noise::place(p, m, n)) return;\n"
+                    "  uint32_t s0 = k0, s1 = k1;\n"
+                    "  noise::slice_key(s0, s1, lead, blockIdx.y);\n"),
+                   ("  const uint32_t s0 = key[0], s1 = key[1];\n", "")],
+    "no_cos": [("return __fmul_rn(r, glibc_cosf(__fmul_rn(0x1.921fb6p+2f, u2)));",
+                "return __fmul_rn(r, u2);")],
+    "no_threefry": [("  uint32_t x0 = col, x1 = row | (probe << 24);\n"
+                     "  threefry2x32(k0, k1, x0, x1);",
+                     "  uint32_t x0 = col ^ k0, x1 = (row | (probe << 24)) ^ k1;")],
+    **{f"threads{t}": [("constexpr int kThreads = 256;", f"constexpr int kThreads = {t};")]
+       for t in (128, 512)},
+}
+
 
 def build(name: str, source: str, edits: list) -> ctypes.CDLL:
-    """The edited copy of csrc/<source>.cu (and of common.cuh, where an
+    """The edited copy of csrc/<source>.cu (and of the headers, where an
     edit's text is not in the source) as its own shared library."""
     from repro_torch.kernels import _build
 
-    csrc = ROOT / "src" / "repro_torch" / "csrc"
-    files = {f"{source}.cu": (csrc / f"{source}.cu").read_text(),
-             "common.cuh": (csrc / "common.cuh").read_text()}
+    files = {f"{source}.cu": (CSRC / f"{source}.cu").read_text(),
+             **{h.name: h.read_text() for h in sorted(CSRC.glob("*.cuh"))}}
     for old, new in edits:
         where = next((f for f, text in files.items() if old in text), None)
         if where is None:
-            raise SystemExit(f"variant {name}: {old!r} is in neither {source}.cu nor common.cuh")
+            raise SystemExit(f"variant {name}: {old!r} is in neither {source}.cu nor a header")
         files[where] = files[where].replace(old, new)
     out = ROOT / "build" / "kernel_variants" / f"{source}_{name}"
     out.mkdir(parents=True, exist_ok=True)
@@ -281,7 +515,7 @@ def build(name: str, source: str, edits: list) -> ctypes.CDLL:
         if "registers" in ln or "spill" in ln]}), flush=True)
     lib = ctypes.CDLL(str(so))
     for fn in ("quant_matmul_fwd", "tezo_perturb_fwd", "subzo_perturb_fwd",
-               "tezo_adam_update_fwd"):
+               "tezo_adam_update_fwd", "selective_scan_fwd", "noise_perturb_fwd"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
     return lib
@@ -313,9 +547,10 @@ def main(argv: list) -> int:
     from repro_torch.utils.jax_random import PRNGKey
     from repro_torch.utils.tree import flatten_with_path
 
-    ap = argparse.ArgumentParser(description="Time the weight kernels' design variants.")
+    ap = argparse.ArgumentParser(description="Time the kernels' design variants.")
     ap.add_argument("--kernels", default="quant_matmul,tezo_perturb,subzo_perturb,"
-                    "tezo_adam_update", help="comma-separated kernels to measure")
+                    "tezo_adam_update,selective_scan,noise_perturb",
+                    help="comma-separated kernels to measure")
     kinds = set(ap.parse_args(argv).kernels.split(","))
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
@@ -497,6 +732,59 @@ def main(argv: list) -> int:
                                                   for a, b in zip(got, unchained))}
             report("tezo_adam_update", name, "pass over the 10 low-rank leaves, with the restore",
                    lambda lib=lib: adam_pass(lib), **extra)
+
+    if "selective_scan" in kinds:
+        sclibs = {"main": real,
+                  **{n: build(n, "selective_scan", e) for n, e in SCAN_VARIANTS.items()}}
+
+        def scan_call(lib, args):
+            x, dt, a, b, c, h0 = args
+            (B, S, D), N = x.shape, a.shape[-1]
+            y = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+            h = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+            check("selective_scan_fwd", lib.selective_scan_fwd(
+                *(t.data_ptr() for t in (x, dt, a, b, c, h0, y, h)), B, S, D, N, stream))
+            return y, h
+
+        for label, (B, S, D, N) in cs.SCAN_TIME_CASES:
+            args = cs._scan_inputs(B, S, D, N, dev, 700)
+            want = scan_call(real, args)
+            for name, lib in sclibs.items():
+                got = scan_call(lib, args)
+                report("selective_scan", name, f"{label} (B {B}, S {S}, D {D}, N {N})",
+                       lambda lib=lib: scan_call(lib, args),
+                       bitwise_main=all(torch.equal(a, b) for a, b in zip(got, want)))
+
+    if "noise_perturb" in kinds:
+        from repro_torch.core import dispatch
+        from repro_torch.kernels import zo_noise as zn
+        from repro_torch.kernels.tezo_perturb import _DTYPES
+
+        nlibs = {"main": real,
+                 **{n: build(n, "noise_perturb", e) for n, e in NOISE_VARIANTS.items()}}
+        nleaves = [(w.clone(), zn.leaf_seed(PRNGKey(7), path), w)
+                   for path, w in flatten_with_path(params) if dispatch.noise_kernel_eligible(w)]
+        chain = _build.NoiseChain.of(zn._chain([0], [cs.TRAIN_RHO]))
+
+        def noise_pass(lib, fresh=False):
+            """In place, or (``fresh``) on copies of the untimed inputs."""
+            outs = []
+            for w, seed, w0 in nleaves:
+                x = w0.clone() if fresh else w
+                lead, B, m, n = zn._check_leaf(x, seed)
+                check("noise_perturb_fwd", lib.noise_perturb_fwd(
+                    x.data_ptr(), x.data_ptr(), seed[0], seed[1], chain, lead, B, m, n,
+                    _DTYPES[x.dtype], stream))
+                outs.append(x)
+            return outs
+
+        want = noise_pass(real, fresh=True)
+        for name, lib in nlibs.items():
+            got = noise_pass(lib, fresh=True)
+            report("noise_perturb", name, f"k = 1 pass over the {len(nleaves)} eligible leaves",
+                   lambda lib=lib: noise_pass(lib),
+                   bitwise_main=all(torch.equal(a, b) for a, b in zip(got, want)),
+                   unequal=sum(int((a != b).sum()) for a, b in zip(got, want)))
     return 0
 
 
