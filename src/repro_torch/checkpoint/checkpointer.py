@@ -3,7 +3,9 @@
 
 One ``step_NNNNNNNN/`` directory per save: ``arrays.npz`` keyed by each
 leaf's JAX ``keystr`` path (``.params['blocks']['wq']``,
-``.mstate['tau_m']["['blocks']['wq']"]``, ``.step``, ``.base_key``) and a
+``.mstate['tau_m']["['blocks']['wq']"]``, ``.step``, ``.base_key``; a
+factor's per-layer rank mask as ``.mstate['factors']["['blocks']['wq']"].rank_mask``,
+the key JAX's flattening of the reference's ``CPDFactor`` gives it) and a
 ``manifest.json`` of shapes, dtype names and the caller's ``extra``.  bf16
 leaves are stored as 2-byte void records with dtype name ``bfloat16``, as
 the reference writes them, so either package reads the other's

@@ -12,8 +12,13 @@ from ``fold_in_path(key, path + "#u"/"#v")``, τ from
 ``fold_in_path(fold_in(key_t, probe), path + "#tau")``, a dense leaf's noise
 from ``path + "#dense"``.  A quantized leaf (``core.quant.QuantLeaf``)
 carries its own frozen factors, drawn at quantize time from the same
-streams.  Per-layer rank masks (spectral rank) are not ported yet
-(ROADMAP.md Queue A).
+streams.
+
+Per-layer ranks with static shapes (spectral rank, ``core.rank``): a stacked
+leaf keeps one factor width r (its layers' largest) and a 0/1
+``rank_mask`` ``(..., r)`` zeroes each layer's τ components past its own
+rank.  τ is drawn on the host (``core.estimator.StepNoise``), so the mask
+lives there too and multiplies the draw before it is copied to the device.
 """
 
 from __future__ import annotations
@@ -30,10 +35,12 @@ from repro_torch.utils.tree import fold_in_path, map_with_path
 
 @dataclass
 class CPDFactor:
-    """Frozen model-dimension factors of one leaf: u (..., m, r), v (..., n, r)."""
+    """Frozen model-dimension factors of one leaf: u (..., m, r), v (..., n, r),
+    and an optional per-layer ``rank_mask`` (..., r), f32 0/1 on the host."""
 
     u: torch.Tensor
     v: torch.Tensor
+    rank_mask: Optional[torch.Tensor] = None
 
     @property
     def rank(self) -> int:
@@ -72,22 +79,36 @@ def init_factors(
     key,
     default_rank: int = 64,
     ranks: Optional[dict] = None,
+    rank_masks: Optional[dict] = None,
 ) -> FactorTree:
     """Draw the frozen N(0, 1) f32 factors of every low-rank leaf, on the
-    leaf's device.  A QuantLeaf's factors are its own ``qu``/``qv`` (the
+    leaf's device, with its ``rank_masks`` entry (shape (..., r)) as the
+    factor's mask.  A QuantLeaf's factors are its own ``qu``/``qv`` (the
     same tensors: nothing writes them), drawn from the same streams at its
-    rank."""
+    rank; it takes no mask."""
     factors: FactorTree = {}
 
     def make(path: str, leaf: torch.Tensor) -> torch.Tensor:
         if isinstance(leaf, QuantLeaf):
+            if rank_masks is not None and path in rank_masks:
+                raise ValueError(
+                    f"rank_masks on quantized leaf {path}: per-layer rank "
+                    "masks are unsupported with weight_quant"
+                )
             factors[path] = CPDFactor(u=leaf.qu, v=leaf.qv)
         elif is_lowrank_leaf(path, leaf):
             r = _leaf_rank(path, leaf, ranks, default_rank)
             batch, (m, n) = tuple(leaf.shape[:-2]), leaf.shape[-2:]
+            mask = None
+            if rank_masks is not None and path in rank_masks:
+                mask = torch.as_tensor(rank_masks[path], dtype=torch.float32, device="cpu")
+                assert tuple(mask.shape) == batch + (r,), (
+                    f"rank_mask for {path} must be {batch + (r,)}, got {tuple(mask.shape)}"
+                )
             factors[path] = CPDFactor(
                 u=jax_random.normal(fold_in_path(key, path + "#u"), batch + (m, r), leaf.device),
                 v=jax_random.normal(fold_in_path(key, path + "#v"), batch + (n, r), leaf.device),
+                rank_mask=mask,
             )
         return leaf
 
@@ -106,10 +127,13 @@ def dense_key(key_t, path: str, probe: int = 0) -> tuple[int, int]:
 
 
 def sample_tau(factor: CPDFactor, key_t, path: str, probe: int = 0) -> torch.Tensor:
-    """τ ~ N(0, I_r) for one leaf at one step and probe: f32 (..., r) on the
-    host.  The step draws all of these at once (``core.estimator``); this is
-    the one-leaf form."""
-    return jax_random.normal(tau_key(key_t, path, probe), factor.batch + (factor.rank,))
+    """τ ~ N(0, I_r) for one leaf at one step and probe, times its rank mask:
+    f32 (..., r) on the host.  The step draws all of these at once
+    (``core.estimator``); this is the one-leaf form."""
+    tau = jax_random.normal(tau_key(key_t, path, probe), factor.batch + (factor.rank,))
+    if factor.rank_mask is not None:
+        tau = tau * factor.rank_mask
+    return tau
 
 
 def reconstruct(factor: CPDFactor, tau: torch.Tensor) -> torch.Tensor:

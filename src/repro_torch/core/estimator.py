@@ -57,13 +57,15 @@ from repro_torch.utils.tree import flatten_with_path, fold_in_path, map_with_pat
 class ZOConfig:
     """Static configuration of a ZO fine-tuning run: the reference's fields
     that the ported code reads, under its names and defaults.  There is no
-    ``kernel_mode`` (the tensor's device decides); the spectral-rank fields
-    come with their module (ROADMAP.md Queue A item 4)."""
+    ``kernel_mode`` (the tensor's device decides)."""
 
     method: str = "tezo_adam"
     rho: float = 1e-3
     lr: float = 1e-6
-    rank: int = 64
+    rank: int = 64  # the CP rank r of rank_mode "const"
+    rank_mode: str = "const"  # const | spectral (Eq. 7 at setup: core.rank.select_ranks)
+    rank_threshold: float = 0.25  # the spectral threshold (the paper's App. A.3: 20-35%)
+    r_max: int = 64
     beta1: float = 0.9
     beta2: float = 0.99
     eps: float = 1e-5
@@ -165,14 +167,16 @@ class StepNoise:
     the dense z of the leaves no kernel draws for are drawn on the host in
     one vectorized pass and copied to the device in one pinned,
     non-blocking copy: ``[q, T]`` τ, then ``[q, D]`` dense z (f32 holding
-    values already rounded to each leaf's dtype).  The factors a method
-    draws on the device come in whole: SubZO's ``coef`` (its Σ cores),
-    LOZO's ``u`` (its window's factor per leaf) and ``v`` (the fresh
-    factors), each from :func:`_device_draws`."""
+    values already rounded to each leaf's dtype).  A leaf with a rank mask
+    (``tau_masks``, host f32 (..., r)) has each probe's τ multiplied by it
+    on the host before the copy, as the reference's ``sample_tau`` does on
+    the device.  The factors a method draws on the device come in whole:
+    SubZO's ``coef`` (its Σ cores), LOZO's ``u`` (its window's factor per
+    leaf) and ``v`` (the fresh factors), each from :func:`_device_draws`."""
 
     def __init__(self, dense: dict, key_t, q: int, device, *, tau: Optional[dict] = None,
-                 coef: Optional[ProbeDraws] = None, u: Optional[dict] = None,
-                 v: Optional[ProbeDraws] = None):
+                 tau_masks: Optional[dict] = None, coef: Optional[ProbeDraws] = None,
+                 u: Optional[dict] = None, v: Optional[ProbeDraws] = None):
         self.q, self.key_t = q, key_t
         self.u, self.v = u or {}, v
         host_coef = ProbeDraws(tau or {}, q)
@@ -190,6 +194,12 @@ class StepNoise:
                 sizes.append(math.prod(shape))
         host = jax_random.normal_many(keys, sizes)
         T = host_coef.T
+        for path, off, shape in host_coef.meta:
+            mask = (tau_masks or {}).get(path)
+            if mask is None:
+                continue
+            for p in range(q):  # a multiply, not a select: -τ·0 is -0 there too
+                host[p * T + off: p * T + off + math.prod(shape)].view(shape).mul_(mask)
         for p in range(q):  # dense z is drawn in f32 and rounded to the leaf dtype
             base = q * T + p * self.D
             for _, off, shape, dtype in self._z_meta:
@@ -252,7 +262,8 @@ class ZOMethod:
 
     name: str = "base"
 
-    def init(self, params, key, cfg: ZOConfig, ranks: Optional[dict] = None) -> dict:
+    def init(self, params, key, cfg: ZOConfig, ranks: Optional[dict] = None,
+             rank_masks: Optional[dict] = None) -> dict:
         raise NotImplementedError
 
     def begin_step(self, mstate, key_t, step: int, cfg: ZOConfig) -> dict:
@@ -276,7 +287,9 @@ class ZOMethod:
         step function keeps one) for what a method reuses across steps."""
         factors = self.factors(mstate)
         return StepNoise(_dense_leaves(params, factors), key_t, cfg.q_probes, _device(params),
-                         tau={p: f.batch + (f.rank,) for p, f in factors.items()})
+                         tau={p: f.batch + (f.rank,) for p, f in factors.items()},
+                         tau_masks={p: f.rank_mask for p, f in factors.items()
+                                    if f.rank_mask is not None})
 
     def lowrank_chain(self, path, w, mstate, noise, probes, scales, out):
         """The chain on one of the method's low-rank leaves, or None if
@@ -320,9 +333,10 @@ class TeZO(ZOMethod):
 
     name = "tezo"
 
-    def init(self, params, key, cfg, ranks=None):
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
         return {"factors": init_factors(params, jax_random.fold_in(key, 1),
-                                        default_rank=cfg.rank, ranks=ranks)}
+                                        default_rank=cfg.rank, ranks=ranks,
+                                        rank_masks=rank_masks)}
 
     def factors(self, mstate):
         return mstate["factors"]
@@ -352,8 +366,8 @@ class TeZOMomentum(TeZO):
 
     name = "tezo_m"
 
-    def init(self, params, key, cfg, ranks=None):
-        mstate = super().init(params, key, cfg, ranks)
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
+        mstate = super().init(params, key, cfg, ranks, rank_masks)
         factors = mstate["factors"]
         mstate["tau_m"] = {
             p: torch.zeros(f.batch + (f.rank,), dtype=torch.float32, device=f.u.device)
@@ -400,8 +414,8 @@ class TeZOAdam(TeZOMomentum):
 
     name = "tezo_adam"
 
-    def init(self, params, key, cfg, ranks=None):
-        mstate = super().init(params, key, cfg, ranks)
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
+        mstate = super().init(params, key, cfg, ranks, rank_masks)
         mstate["tau_v"] = {p: torch.zeros_like(t) for p, t in mstate["tau_m"].items()}
         mstate["dense_v"] = {p: torch.zeros_like(m) for p, m in mstate["dense_m"].items()}
         return mstate
@@ -444,7 +458,7 @@ class MeZO(ZOMethod):
 
     name = "mezo"
 
-    def init(self, params, key, cfg, ranks=None):
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
         return {}
 
     def _moments(self, params) -> dict:
@@ -469,7 +483,7 @@ class MeZOMomentum(MeZO):
 
     name = "mezo_m"
 
-    def init(self, params, key, cfg, ranks=None):
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
         return {"m": self._moments(params)}
 
     def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
@@ -493,7 +507,7 @@ class MeZOAdam(MeZO):
 
     name = "mezo_adam"
 
-    def init(self, params, key, cfg, ranks=None):
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
         return {"m": self._moments(params), "v": self._moments(params)}
 
     def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
@@ -568,7 +582,7 @@ class LOZO(ZOMethod):
 
     name = "lozo"
 
-    def init(self, params, key, cfg, ranks=None):
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
         return {"base_key": jax_random.key_data(jax_random.fold_in(key, 7))}
 
     @staticmethod
@@ -648,8 +662,8 @@ class LOZOMomentum(LOZO):
 
     name = "lozo_m"
 
-    def init(self, params, key, cfg, ranks=None):
-        mstate = super().init(params, key, cfg, ranks)
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
+        mstate = super().init(params, key, cfg, ranks, rank_masks)
         vm = {}
 
         def visit(path, w):
@@ -712,7 +726,7 @@ class SubZO(ZOMethod):
 
     name = "subzo"
 
-    def init(self, params, key, cfg, ranks=None):
+    def init(self, params, key, cfg, ranks=None, rank_masks=None):
         base = jax_random.fold_in(key, 11)
         shapes = {}
 

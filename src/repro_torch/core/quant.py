@@ -358,7 +358,7 @@ def validate_quant_config(cfg) -> None:
             "multiplies the frozen packed base, which the factor-space "
             "update path cannot express"
         )
-    if getattr(cfg, "rank_mode", "const") == "spectral":
+    if cfg.rank_mode == "spectral":
         raise ValueError(
             "weight_quant with rank_mode='spectral' is unsupported: spectral "
             "rank selection inspects dense W at init"

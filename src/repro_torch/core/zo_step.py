@@ -69,15 +69,17 @@ class ZOTrainState:
     base_key: np.ndarray  # uint32[2]
 
 
-def init_zo_state(params: Any, cfg: ZOConfig, ranks: dict | None = None) -> ZOTrainState:
+def init_zo_state(params: Any, cfg: ZOConfig, ranks: dict | None = None,
+                  rank_masks: dict | None = None) -> ZOTrainState:
     """The reference's key chain: PRNGKey(seed) → fold_in 0xF0 for the
-    method's factors, fold_in 0x5EED for the step keys.  With
-    ``weight_quant`` the eligible block leaves are quantized first, their
-    qu/qv drawn from the key TeZO's ``init_factors`` gets (the method key
-    folded with 1), so the quantized run's factors are the dense run's."""
+    method's factors, fold_in 0x5EED for the step keys.  ``ranks`` and
+    ``rank_masks`` are ``core.rank.select_ranks``'s per-path overrides.
+    With ``weight_quant`` the eligible block leaves are quantized first,
+    their qu/qv drawn from the key TeZO's ``init_factors`` gets (the method
+    key folded with 1), so the quantized run's factors are the dense run's."""
     key = jax_random.PRNGKey(cfg.seed)
     if cfg.weight_quant != "none":
-        if ranks is not None:
+        if ranks is not None or rank_masks is not None:
             raise ValueError(
                 "weight_quant with per-path ranks/rank_masks is unsupported: "
                 "quantized leaves draw their factors at cfg.rank before the "
@@ -86,7 +88,7 @@ def init_zo_state(params: Any, cfg: ZOConfig, ranks: dict | None = None) -> ZOTr
         params = quant.quantize_for_config(
             params, cfg, jax_random.fold_in(jax_random.fold_in(key, 0xF0), 1))
     method = get_method(cfg.method)
-    mstate = method.init(params, jax_random.fold_in(key, 0xF0), cfg, ranks)
+    mstate = method.init(params, jax_random.fold_in(key, 0xF0), cfg, ranks, rank_masks)
     return ZOTrainState(params=params, mstate=mstate, step=0,
                         base_key=jax_random.key_data(jax_random.fold_in(key, 0x5EED)))
 

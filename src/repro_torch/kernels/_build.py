@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -228,6 +230,21 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def forbid_autograd(name: str, *tensors) -> None:
+    """Raise where autograd would record through a hand-written kernel.  No
+    kernel has a backward, so such a call would drop its inputs' gradients
+    without a word; a path that differentiates names the plain version
+    (``<name>_plain``) at its call site.  The wrappers check on either
+    device: on the CPU they would run the plain version, but the same path
+    on the card reaches the kernel."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: a path that autograd differentiates calls "
+            f"{name}_plain"
+        )
 
 
 def check(err: int, name: str) -> None:

@@ -166,6 +166,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     (kpos < min(length, P * page_size) attends) -> [S,H,dh] in q's dtype.
     Table entries below ceil(length / page_size) must be valid page ids; the
     rest are not read."""
+    _build.forbid_autograd("paged_decode_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths)
     if q.device.type != "cuda":
@@ -190,6 +191,7 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, lengths):
     P * page_size) -> [S,T,H,dh] in q's dtype.  Table entries below
     ceil((lengths[s] + T - 1) / page_size), capped at P, must be valid page
     ids."""
+    _build.forbid_autograd("paged_verify_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_verify_attention_plain(q, k_pages, v_pages, block_tables, lengths)
     if q.device.type != "cuda":

@@ -89,6 +89,7 @@ def _check(q, k, v, q_offset, window):
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Causal (GQA, sliding-window, q_offset) forward attention.
     q [B,S,H,dh], k/v [B,T,KV,dh] -> [B,S,H,dh] in q's dtype."""
+    _build.forbid_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, q_offset=q_offset

@@ -125,6 +125,7 @@ def quant_matmul(x, codes, lut, xu, qv, *, bits: int):
     """``x @ dequant(codes) + xu @ qvᵀ``: x [M, K] f32/bf16 (K up to the
     codes' Kp rows), codes uint32 [Kw, N] plane-packed, lut f32 [N, 2**bits]
     scaled, xu f32 [M, r], qv f32 [N, r] -> [M, N] in x's dtype."""
+    _build.forbid_autograd("quant_matmul", x, lut, xu, qv)
     if x.device.type == "cpu":
         return quant_matmul_plain(x, codes, lut, xu, qv, bits=bits)
     if x.device.type != "cuda":

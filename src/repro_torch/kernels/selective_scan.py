@@ -70,6 +70,7 @@ def _check(x, dt, a, b, c, h0):
 def selective_scan(x, dt, a, b, c, h0):
     """x, dt [B,S,D]; a [D,N] (negative); b, c [B,S,N]; h0 [B,D,N] ->
     (y [B,S,D] f32, h_last [B,D,N] f32).  Inputs are read as f32."""
+    _build.forbid_autograd("selective_scan", x, dt, a, b, c, h0)
     if x.device.type == "cpu":
         return selective_scan_plain(x, dt, a, b, c, h0)
     if x.device.type != "cuda":

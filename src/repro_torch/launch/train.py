@@ -9,10 +9,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch opt-125m --weight-quant lut4                   # quantized block leaves
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch opt-125m --pretrain-steps 20 --rank-mode spectral   # the paper's recipe
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
-Build the model, draw the reference's initial params and ZO state from
-``--seed``, then loop: prefetched batch → pinned non-blocking copy → one ZO
+Build the model and draw the reference's initial params from ``--seed``.
+``--pretrain-steps N`` first trains them with N AdamW steps by backprop
+(``optim.fo``, lr 3e-3, batches ``batch_at_step(data, 10_000_000 + s)``, the
+plain attention under autograd); ``--rank-mode spectral`` then picks each
+low-rank leaf's rank from the (pretrained) weights by the paper's Eq. 7
+(``core.rank.select_ranks``, numpy on the host).  Then draw the ZO state
+and loop: prefetched batch → pinned non-blocking copy → one ZO
 step (the weight passes on the ``tezo_perturb`` / ``tezo_adam_update``
 kernels for the TeZO family, on ``noise_perturb`` / ``noise_update`` for
 the MeZO family, on ``tezo_perturb`` for LOZO and on ``subzo_perturb`` for
@@ -29,8 +36,8 @@ Prints the reference's JSON result (``final_eval_loss``, the final
 ``q_probes`` and the rest) without the history.
 
 Options whose modules are not ported raise and name their ROADMAP.md item:
-``--mesh``, ``--probe-parallel``, ``--ensemble``, ``--rank-mode spectral``
-and ``--pretrain-steps``.
+``--mesh``, ``--probe-parallel`` and ``--ensemble``; ``--pretrain-steps``
+with the hybrid family (``LM.fo_loss_fn``).
 """
 
 from __future__ import annotations
@@ -50,9 +57,11 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adaptive import AdaptiveQ
 from repro_torch.core.estimator import ZOConfig, get_method
+from repro_torch.core.rank import select_ranks
 from repro_torch.core.zo_step import build_zo_train_step, init_zo_state, zo_pass_count
 from repro_torch.data import DataConfig, Prefetcher, batch_at_step
 from repro_torch.models import build_model
+from repro_torch.optim import adamw, build_fo_train_step, init_fo_state
 from repro_torch.utils.jax_random import PRNGKey
 
 
@@ -60,18 +69,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue A item {item})")
 
 
-def _check_ported(*, mesh, probe_parallel, ensemble, straggler_prob, rank_mode,
-                  pretrain_steps, method) -> None:
+def _check_ported(*, mesh, probe_parallel, ensemble, straggler_prob, method) -> None:
     if mesh is not None:
         raise _not_ported("--mesh", "13")
     if probe_parallel:
         raise _not_ported("--probe-parallel", "13")
     if ensemble > 1 or straggler_prob > 0:
         raise _not_ported("--ensemble / --straggler-prob", "13")
-    if rank_mode != "const":
-        raise _not_ported(f"--rank-mode {rank_mode}", "4")
-    if pretrain_steps > 0:
-        raise _not_ported("--pretrain-steps (first-order pretraining)", "14")
     get_method(method)  # KeyError for an unknown method
 
 
@@ -127,6 +131,7 @@ def train(
     ensemble: int = 0,
     straggler_prob: float = 0.0,
     pretrain_steps: int = 0,
+    pretrain_lr: float = 3e-3,
     data_cfg: DataConfig | None = None,
     log_file: str | None = None,
     verbose: bool = True,
@@ -134,12 +139,13 @@ def train(
     model_cfg: ModelConfig | None = None,
     return_state: bool = False,
 ) -> dict:
-    """Run ``steps`` ZO steps; returns the reference's result dict (plus the
-    final ``state`` with ``return_state``).  ``model_cfg`` replaces the
-    registered config (a depth-cut model, say)."""
+    """Run ``pretrain_steps`` first-order steps, then ``steps`` ZO steps;
+    returns the reference's result dict (plus, with ``return_state``, the
+    final ``state`` and the ``setup``: the pretraining's losses and the
+    selected ranks).  ``model_cfg`` replaces the registered config (a
+    depth-cut model, say)."""
     _check_ported(mesh=mesh, probe_parallel=probe_parallel, ensemble=ensemble,
-                  straggler_prob=straggler_prob, rank_mode=rank_mode,
-                  pretrain_steps=pretrain_steps, method=method)
+                  straggler_prob=straggler_prob, method=method)
     cfg = model_cfg or (get_smoke_config(arch) if smoke else get_config(arch))
     model = build_model(cfg, device)
     dev = model.device
@@ -148,12 +154,41 @@ def train(
         vocab_size=min(cfg.vocab_size, 512), seed=seed,
     )
     zo_cfg = ZOConfig(
-        method=method, lr=lr, rho=rho, rank=rank, weight_quant=weight_quant,
-        q_probes=q_probes, restore_mode=restore_mode, probe_parallel=probe_parallel,
-        adaptive_q=adaptive_q, q_max=q_max, seed=seed,
+        method=method, lr=lr, rho=rho, rank=rank, rank_mode=rank_mode,
+        weight_quant=weight_quant, q_probes=q_probes, restore_mode=restore_mode,
+        probe_parallel=probe_parallel, adaptive_q=adaptive_q, q_max=q_max, seed=seed,
         total_steps=steps,
     )
-    state = init_zo_state(model.init(PRNGKey(seed)), zo_cfg)
+    params = model.init(PRNGKey(seed))
+    setup: dict = {}
+    if pretrain_steps > 0:
+        t0 = time.perf_counter()
+        opt = adamw(lr=pretrain_lr)
+        fo_state = init_fo_state(params, opt)
+        fo_step = build_fo_train_step(model.fo_loss_fn, opt)
+        fo_losses = []
+        for s in range(pretrain_steps):
+            fo_state, m = fo_step(fo_state, to_device(batch_at_step(data, 10_000_000 + s), dev))
+            fo_losses.append(m["loss"])
+        params = fo_state.params
+        del fo_state
+        fo_losses = torch.stack(fo_losses).cpu().tolist()  # waits for the last step
+        setup.update(pretrain_steps=pretrain_steps, pretrain_first_loss=fo_losses[0],
+                     pretrain_last_loss=fo_losses[-1], pretrain_s=time.perf_counter() - t0)
+        if verbose:
+            print(f"[train] {json.dumps(setup)}", flush=True)
+
+    ranks = masks = None
+    if zo_cfg.rank_mode == "spectral":
+        t0 = time.perf_counter()
+        ranks, masks = select_ranks(params, threshold=zo_cfg.rank_threshold, r_max=zo_cfg.r_max)
+        sel = {"rank_mode": "spectral", "rank_set": sorted(set(ranks.values())),
+               "rank_masks": len(masks), "select_s": time.perf_counter() - t0}
+        setup.update(sel)
+        if verbose:
+            print(f"[train] {json.dumps(sel)}", flush=True)
+    state = init_zo_state(params, zo_cfg, ranks, masks)
+    del params
     step_fn = build_zo_train_step(model.loss_fn, zo_cfg)
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -241,6 +276,7 @@ def train(
         Path(log_file).write_text(json.dumps(result, indent=1))
     if return_state:
         result["state"] = state
+        result["setup"] = setup
     return result
 
 

@@ -50,6 +50,18 @@ class LM:
         with torch.inference_mode():
             return self.impl.loss_fn(params, batch)
 
+    def fo_loss_fn(self, params: Any, batch: Any) -> torch.Tensor:
+        """The same loss with autograd, for the first-order step
+        (``optim.fo``): its attention is the plain version, named at the call
+        site, since the hand-written kernels have no backward (their
+        wrappers raise under autograd).  The dense family only."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"the first-order loss of family {self.cfg.family!r} is not ported yet "
+                "(ROADMAP.md Queue A item 14, the hybrid family's first-order loss)"
+            )
+        return self.impl.loss_fn(params, batch, grad=True)
+
     # ---- serve ------------------------------------------------------------
     def prefill(self, params: Any, batch: Any, max_len: int):
         return self.impl.prefill(params, batch, max_len)

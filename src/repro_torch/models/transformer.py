@@ -26,6 +26,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import layers
 from repro_torch.models.spec import PSpec
 
@@ -89,11 +90,15 @@ class TransformerLM:
     def _ln1(self, p, x):
         return layers.rms_norm(x, p["ln1"], self.cfg.norm_eps)
 
-    def _attn(self, p, x, sin, cos, q_offset):
+    def _attn(self, p, x, sin, cos, q_offset, grad=False):
         c = self.cfg
         B, S, _ = x.shape
         q, k, v = self._qkv(p, self._ln1(p, x), sin, cos)
-        o = layers.attention(q, k, v, q_offset=q_offset, chunked_min_seq=c.attn_chunked_min_seq)
+        if grad:  # no kernel has a backward: autograd runs through the plain version
+            o = flash_attention_plain(q, k, v, causal=True, q_offset=q_offset)
+        else:
+            o = layers.attention(q, k, v, q_offset=q_offset,
+                                 chunked_min_seq=c.attn_chunked_min_seq)
         o = layers.weight_matmul(o.reshape(B, S, -1), p["wo"])
         return o, (k, v)
 
@@ -102,8 +107,8 @@ class TransformerLM:
         h = layers.rms_norm(x, p["ln2"], c.norm_eps)
         return layers.gated_mlp(h, p.get("w_gate"), p["w_up"], p["w_down"], c.activation)
 
-    def _block(self, p, x, sin, cos, q_offset):
-        o, kv = self._attn(p, x, sin, cos, q_offset)
+    def _block(self, p, x, sin, cos, q_offset, grad=False):
+        o, kv = self._attn(p, x, sin, cos, q_offset, grad)
         x = x + o
         x = x + self._ffn(p, x)
         return x, kv
@@ -117,25 +122,30 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def hidden_states(self, params, batch, collect_kv: bool = False):
+    def hidden_states(self, params, batch, collect_kv: bool = False, grad: bool = False):
         """Final-norm hidden states [B, S, D] and, with ``collect_kv``, the
-        per-layer (k, v) stacked as [L, B, S, KV, dh]."""
+        per-layer (k, v) stacked as [L, B, S, KV, dh].  ``grad``: the
+        attention runs ``flash_attention_plain``, which autograd can
+        differentiate (the first-order step's forward)."""
         c = self.cfg
-        x = params["embed"][batch["tokens"]]
+        # a gather; its gradient sums in a fixed order (indexing's
+        # accumulate=True backward on the CPU does not)
+        x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
         sin, cos = self._rope(torch.arange(x.shape[1], device=x.device))
         ks, vs = [], []
         for i in range(c.n_layers):
-            x, (k, v) = self._block(self._layer(params, i), x, sin, cos, 0)
+            x, (k, v) = self._block(self._layer(params, i), x, sin, cos, 0, grad)
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
         x = layers.rms_norm(x, params["final_norm"], c.norm_eps)
         return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
 
-    def loss_fn(self, params, batch) -> torch.Tensor:
+    def loss_fn(self, params, batch, grad: bool = False) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` (tokens, targets and
-        an optional mask, each [B, S]) as an f32 scalar on the device."""
-        x, _ = self.hidden_states(params, batch)
+        an optional mask, each [B, S]) as an f32 scalar on the device;
+        ``grad`` as in :meth:`hidden_states`."""
+        x, _ = self.hidden_states(params, batch, grad=grad)
         logits = layers.weight_matmul(x, params["lm_head"])
         return layers.cross_entropy(logits, batch["targets"], batch.get("mask"))
 

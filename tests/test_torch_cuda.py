@@ -417,8 +417,9 @@ def test_subzo_kernel_rejects_bad_operands(cuda):
 
 # the weight passes' rank chunks (32 columns) and factor copies (16-byte
 # where r % 4 == 0, else 4-byte) on rows that take the 16-byte W path
-# (264 bf16 columns) and rows that do not (257)
-RANK_SWEEP = [12, 24, 33, 64, 65, 96, 130]
+# (264 bf16 columns) and rows that do not (257); 1, 2, 3 and 7 are ranks
+# Eq. 7 selects (r = 1 for every leaf of full-width opt-125m)
+RANK_SWEEP = [1, 2, 3, 7, 12, 24, 33, 64, 65, 96, 130]
 
 
 @pytest.mark.parametrize("r", RANK_SWEEP)
@@ -472,7 +473,8 @@ def test_weight_kernels_across_ranks(cuda, r, shape, dtype):
 
 
 @pytest.mark.parametrize("shape,r", [((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12),
-                                     ((130, 257), 24), ((2, 300, 256), 24)])
+                                     ((130, 257), 24), ((2, 300, 256), 24), ((130, 257), 1),
+                                     ((2, 150, 264), 2), ((12, 130), 3), ((3, 70, 200), 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lozo_chain_kernel_is_single_passes(cuda, shape, r, dtype):
     """LOZO's chain on the tezo_perturb kernel, k = 2 and 3, each delta over
@@ -1010,3 +1012,107 @@ def test_verify_window_is_bitwise_decode_steps_on_card(cuda):
         dec, _ = model.decode_step_paged(params, cache, bt, torch.where(lens > 0, lens + t, 0)
                                          .to(torch.int32), window[:, t].contiguous())
         assert torch.equal(ver[:2, t], dec[:2]), t
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 7])
+@pytest.mark.parametrize("shape", [(2, 150, 264), (130, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tezo_perturb_at_small_ranks(cuda, r, shape, dtype):
+    """tezo_perturb chains of k = 1, 2, 3 (decay on the last) against the
+    plain version at the ranks Eq. 7 selects, and each chain bitwise its
+    single launches."""
+    *batch, m, n = shape
+    w = _randn(shape, cuda, 21, 0.1).to(dtype)
+    u, v = _randn((*batch, m, r), cuda, 22, 1.0), _randn((*batch, n, r), cuda, 23, 1.0)
+    taus = _randn((*batch, 3, r), cuda, 24, 1.0)
+    scales = [1e-3, -2e-3, 1e-3]
+    for k in (1, 2, 3):
+        tk = taus[..., :k, :].contiguous()
+        got = tpert.tezo_perturb(w.clone(), u, v, tk, scales[:k], decay=0.99)
+        want = tpert.tezo_perturb_plain(w.clone(), u, v, tk, scales[:k], decay=0.99)
+        if dtype == torch.float32:
+            assert (got - want).abs().max().item() <= 1e-5, k
+        else:
+            assert _within_bf16_ulp(got, want, w), k
+        single = w.clone()
+        for s in range(k):
+            single = tpert.tezo_perturb(single, u, v, taus[..., s:s + 1, :].contiguous(),
+                                        [scales[s]], decay=0.99 if s == k - 1 else None)
+        assert torch.equal(got, single), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_tezo_adam_on_card(cuda, dtype):
+    """TeZO-Adam, q = 2, 3 steps with per-layer rank masks on the stacked
+    block leaves: chained == unchained bitwise through the kernels, the
+    masked τ_M / τ_V components exactly 0 and the kept ones not."""
+    cfg = get_smoke_config("opt-125m").reduced(dtype=dtype)
+    model = build_model(cfg, cuda)
+    params = model.init(PRNGKey(0))
+    mask = np.array([[1] * 5 + [0] * 3, [1] * 8], np.float32)
+    masks = {f"['blocks']['{n}']": mask for n, w in params["blocks"].items() if w.dim() == 3}
+    data = DataConfig(seq_len=32, global_batch=4, vocab_size=256)
+    states = {}
+    for mode in ("inplace", "unchained"):
+        zc = ZOConfig(method="tezo_adam", q_probes=2, restore_mode=mode, rank=8, lr=1e-2)
+        state = init_zo_state(model.init(PRNGKey(0)), zc, rank_masks=masks)
+        step = build_zo_train_step(model.loss_fn, zc)
+        for s in range(3):
+            batch = {k: torch.from_numpy(x).to(cuda) for k, x in batch_at_step(data, s).items()}
+            state, _ = step(state, batch)
+        states[mode] = state
+    a, b = states["inplace"], states["unchained"]
+    fb = dict(flatten_with_path(b))
+    for path, t in flatten_with_path(a):
+        if isinstance(t, torch.Tensor):
+            assert torch.equal(t, fb[path]), path
+        else:
+            assert np.array_equal(t, fb[path]), path
+    for path in masks:
+        for moment in ("tau_m", "tau_v"):
+            t = a.mstate[moment][path].cpu()
+            assert torch.all(t[0, 5:] == 0) and torch.all(t[0, :5] != 0), (moment, path)
+            assert torch.all(t[1] != 0), (moment, path)
+
+
+def _autograd_calls(cuda):
+    q = torch.randn(1, 8, 2, 16, device=cuda, requires_grad=True)
+    pages = torch.randn(3, 4, 2, 16, device=cuda)
+    bt = torch.tensor([[1, 2], [2, 1]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    x = torch.randn(2, 5, 8, device=cuda, requires_grad=True)
+    return {
+        "flash_attention": lambda: tflash.flash_attention(q, q.detach(), q.detach()),
+        "paged_decode_attention": lambda: tdec.paged_decode_attention(q[0, :2], pages, pages,
+                                                                      bt, lens),
+        "paged_verify_attention": lambda: tdec.paged_verify_attention(
+            q[0, :4].reshape(2, 2, 2, 16), pages, pages, bt, lens),
+        "selective_scan": lambda: tscan.selective_scan(
+            x, x.detach().abs(), -torch.ones(8, 4, device=cuda), torch.randn(2, 5, 4, device=cuda),
+            torch.randn(2, 5, 4, device=cuda), torch.zeros(2, 8, 4, device=cuda)),
+        "quant_matmul": lambda: tqmm.quant_matmul(
+            torch.randn(4, 8, device=cuda, requires_grad=True),
+            torch.zeros(1, 6, dtype=torch.int32, device=cuda), torch.zeros(6, 16, device=cuda),
+            torch.zeros(4, 2, device=cuda), torch.zeros(6, 2, device=cuda), bits=4),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_decode_attention",
+                                  "paged_verify_attention", "selective_scan", "quant_matmul"])
+def test_kernel_wrappers_raise_under_autograd_on_card(cuda, name):
+    """No kernel has a backward: a call autograd would record raises before
+    anything launches, so no path can drop a gradient quietly; under
+    no_grad the kernel runs."""
+    call = _autograd_calls(cuda)[name]
+    counter = {"flash_attention": tflash.flash_attention,
+               "paged_decode_attention": tdec.paged_decode_attention,
+               "paged_verify_attention": tdec.paged_verify_attention,
+               "selective_scan": tscan.selective_scan, "quant_matmul": tqmm.quant_matmul}[name]
+    n0 = counter.launches
+    with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+        call()
+    assert counter.launches == n0
+    if name != "quant_matmul":  # its operands above are not a packed leaf
+        with torch.no_grad():
+            call()
+        assert counter.launches == n0 + 1

@@ -142,6 +142,7 @@ def _rejected(validate, cfg) -> str:
     dict(method="lozo", weight_quant="lut4"),
     dict(method="subzo", weight_quant="nf4"),
     dict(method="tezo", weight_quant="lut4", weight_decay=0.01),
+    dict(method="tezo_adam", weight_quant="lut4", rank_mode="spectral"),
 ])
 def test_validate_quant_config_rejections(kw):
     """Every rejection the port's ZOConfig can express raises the

@@ -473,7 +473,7 @@ def test_lr_schedule_matches_reference(sched):
 
 @pytest.mark.parametrize("kw", [
     dict(mesh="host:2,1"), dict(probe_parallel=True), dict(ensemble=2),
-    dict(straggler_prob=0.1), dict(rank_mode="spectral"), dict(pretrain_steps=5),
+    dict(straggler_prob=0.1),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises((NotImplementedError, KeyError), match="ROADMAP.md Queue A"):
