@@ -13,6 +13,12 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES: dict[str, str] = {
     "opt-125m": "opt_125m",
     "hymba-1.5b": "hymba_1_5b",
+    "granite-8b": "granite_8b",
+    "yi-34b": "yi_34b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen3-32b": "qwen3_32b",
+    "paligemma-3b": "paligemma_3b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 

@@ -2,14 +2,14 @@
 
 The port keeps its own copy instead of importing the reference's, with the
 fields the ported code reads, under the reference's names and defaults:
-the dense block (opt-125m: no qkv bias, no qk-norm, the 2-matrix GELU FFN
-through ``activation="gelu"``) and the hybrid block (hymba-1.5b: sliding
-``window`` attention, the Mamba path's ``ssm_state``, ``ssm_expand`` and
-``conv_width``, the SwiGLU FFN).  The reference's fields for the other
-families (``qkv_bias``, ``qk_norm``, ``n_experts``, xLSTM's, the prefix
-embeds), sharding hints and chunked cross-entropy come with a registered
-config that sets them.  There is no ``kernel_mode``: the tensor's device
-decides between a kernel and its plain version.
+the dense block and its options (``qkv_bias``, qwen2.5; ``qk_norm``,
+qwen3; the FFN's ``activation``: SwiGLU, GeGLU or the 2-matrix GELU FFN),
+the modality stubs' ``n_prefix_embeds`` (paligemma, musicgen) and the
+hybrid block (hymba-1.5b: sliding ``window`` attention, the Mamba path's
+``ssm_state``, ``ssm_expand`` and ``conv_width``).  The reference's fields
+for MoE and xLSTM, sharding hints and chunked cross-entropy come with a
+registered config that sets them.  There is no ``kernel_mode``: the
+tensor's device decides between a kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" or "hybrid" are ported
+    family: str  # dense | vlm | audio | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,15 +28,20 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+    # ---- attention options -----------------------------------------------
+    qkv_bias: bool = False  # qwen2.5
+    qk_norm: bool = False  # qwen3
     rope_theta: float = 10_000.0
     window: int = 0  # sliding-window size; 0 = full causal
     # ---- block options ----------------------------------------------------
-    activation: str = "swiglu"  # swiglu | gelu
+    activation: str = "swiglu"  # swiglu | geglu | gelu (the 2-matrix FFN)
     norm_eps: float = 1e-6
     # ---- SSM / hybrid -----------------------------------------------------
     ssm_state: int = 0  # mamba state N (hymba)
     ssm_expand: int = 2  # mamba inner expansion
     conv_width: int = 4  # mamba depthwise conv width
+    # ---- frontends (stubs, as in the reference) ---------------------------
+    n_prefix_embeds: int = 0  # precomputed modality embeddings (vlm/audio)
     # ---- numerics ---------------------------------------------------------
     dtype: str = "bfloat16"
     attn_chunked_min_seq: int = 8192  # CPU: plain flash version at >= this

@@ -202,18 +202,27 @@ def _rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
 def noise_update_plain(w, seed, kappas, variant, lr, beta1=0.0, beta2=0.0, eps=0.0,
                        decay=None, m_buf=None, v_buf=None, restore_probes=(),
                        restore_scales=()):
-    """The kernel's function in plain PyTorch; W, M and V in place."""
+    """The kernel's function in plain PyTorch; W, M and V in place.  A
+    probe that both the restore chain and g read is drawn once per slice
+    (the chained step restores its last probe: one draw in four saved)."""
     restore = _chain(restore_probes, restore_scales)
     q = kappas.shape[0]
     h = _hyp(lr, beta1, beta2, eps, decay, q)
     m, n = w.shape[-2:]
     for idx, s in _slices(tuple(w.shape), seed):
+        drawn: dict = {}
+
+        def z(p):
+            if p not in drawn:
+                drawn[p] = counter_normal(s, m, n, p, w.device)
+            return drawn[p]
+
         wf = w[idx].float()
         for p, sc in restore:
-            wf = _delta(wf, sc, counter_normal(s, m, n, p, w.device), w.dtype)
-        g = kappas[0] * counter_normal(s, m, n, 0, w.device)
+            wf = _delta(wf, sc, z(p), w.dtype)
+        g = kappas[0] * z(0)
         for p in range(1, q):
-            g = g + kappas[p] * counter_normal(s, m, n, p, w.device)
+            g = g + kappas[p] * z(p)
         step = g * h.inv_q
         if variant != "sgd":
             mm = m_buf[idx] * h.b1 + step * h.omb1

@@ -55,6 +55,8 @@ does.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-125m \
         --engine --batch 8 --prompt-len 32 --max-new 16 [--spec-decode] \
         [--device cpu --smoke]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
+        --engine                              # 14.8 B params, bf16, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         [--device cpu --smoke]                # BatchedServer
 """

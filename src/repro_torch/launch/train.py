@@ -11,6 +11,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch opt-125m --pretrain-steps 20 --rank-mode spectral   # the paper's recipe
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen2.5-14b --method tezo_adam --steps 3       # 14.8 B params, bf16
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
 Build the model and draw the reference's initial params from ``--seed``.

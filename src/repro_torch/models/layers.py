@@ -1,7 +1,7 @@
 """Shared neural layers (counterpart of ``repro.models.layers``): norms,
 RoPE, attention (full / decode / paged decode / paged verify), the weight
-matmul (dense or quantized), the gated MLP (swiglu, or the 2-matrix gelu
-FFN) and the cross-entropy loss.
+matmul (dense or quantized), the gated MLP (swiglu, geglu, or the 2-matrix
+gelu FFN) and the cross-entropy loss.
 Plain functions over tensors; softmax and norm math in f32, activations in
 the config dtype, as in the reference."""
 
@@ -182,16 +182,20 @@ def weight_matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 def gated_mlp(x, w_gate, w_up, w_down, activation="swiglu"):
     """The reference's ``gated_mlp``: ``act(x @ w_gate) * (x @ w_up) @
-    w_down`` with the activation in f32, or with ``activation="gelu"`` the
-    classic 2-matrix FFN (OPT style, ``w_gate`` unused)."""
+    w_down`` with the activation in f32 (SiLU for ``"swiglu"``, the tanh
+    approximation of GELU for ``"geglu"``), or with ``activation="gelu"``
+    the classic 2-matrix FFN (OPT style, ``w_gate`` unused)."""
     u = weight_matmul(x, w_up)
     if activation == "gelu":
         a = F.gelu(u.float(), approximate="tanh").to(x.dtype)
         return weight_matmul(a, w_down)
-    if activation != "swiglu":
-        raise ValueError(f"activation {activation!r} is not ported (swiglu | gelu)")
     g = weight_matmul(x, w_gate)
-    a = F.silu(g.float()).to(x.dtype)
+    if activation == "swiglu":
+        a = F.silu(g.float()).to(x.dtype)
+    elif activation == "geglu":
+        a = F.gelu(g.float(), approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(activation)
     return weight_matmul(a * u, w_down)
 
 

@@ -1,8 +1,9 @@
 """Unified LM wrapper (counterpart of ``repro.models.model``): one object
 per architecture exposing ``init``, ``loss_fn`` and the serving paths.
-The ``dense`` family (``models.transformer``) and the ``hybrid`` family
-(``models.hymba``) are ported; only the dense one has the paged serving
-paths."""
+The ``dense``, ``vlm`` and ``audio`` families (``models.transformer``; a
+vlm or audio batch may carry prefix ``embeds [B, P, D]``, the modality
+stubs) and the ``hybrid`` family (``models.hymba``) are ported; only the
+transformer families have the paged serving paths."""
 
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from repro_torch.models.transformer import TransformerLM, torch_dtype
 from repro_torch.utils.device import resolve_device
 
 
-_FAMILIES = {"dense": TransformerLM, "hybrid": HymbaLM}
+_FAMILIES = {"dense": TransformerLM, "vlm": TransformerLM, "audio": TransformerLM,
+             "hybrid": HymbaLM}
 
 
 class LM:
@@ -54,8 +56,8 @@ class LM:
         """The same loss with autograd, for the first-order step
         (``optim.fo``): its attention is the plain version, named at the call
         site, since the hand-written kernels have no backward (their
-        wrappers raise under autograd).  The dense family only."""
-        if self.cfg.family != "dense":
+        wrappers raise under autograd).  The transformer families only."""
+        if not isinstance(self.impl, TransformerLM):
             raise NotImplementedError(
                 f"the first-order loss of family {self.cfg.family!r} is not ported yet "
                 "(ROADMAP.md Queue A item 14, the hybrid family's first-order loss)"

@@ -4,7 +4,10 @@
 The draws replay the reference's: a normal leaf is
 ``jax.random.normal(fold_in_path(key, path)) * scale`` in f32, cast to the
 leaf dtype (``utils.jax_random``), so one seed gives the reference's
-weights bit for bit.
+weights bit for bit.  The multiply and the cast are elementwise, so each
+drawn chunk is scaled and cast straight into the leaf: no leaf is ever
+whole in f32 beside the weights (qwen2.5-14b's ``w_gate`` would take 13.6
+GB so, qwen3-32b's 33.6).
 """
 
 from __future__ import annotations
@@ -49,7 +52,10 @@ def init_params(
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=device)
-        w = jax_random.normal(fold_in_path(key, path), spec.shape, device)
-        return (w * spec.scale).to(dt)
+        w = torch.empty(spec.shape, dtype=dt, device=device)
+        flat = w.view(-1)
+        for start, z in jax_random.normal_chunks(fold_in_path(key, path), w.numel(), device):
+            flat[start:start + z.numel()] = z * spec.scale  # the copy casts to dt
+        return w
 
     return map_with_path(make, specs)

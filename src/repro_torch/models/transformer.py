@@ -1,16 +1,19 @@
-"""Decoder-only transformer LM, dense family (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer LM covering the dense, VLM and audio families
+(counterpart of ``repro.models.transformer``).
 
 Parameters keep the reference's stacked layout — one ``[L, ...]`` tensor
 per block leaf — and a plain Python loop over layers takes the place of
-``lax.scan``.  Ported: opt-125m's dense block (no qkv bias, no qk-norm,
-full causal attention, the 2-matrix GELU FFN of ``activation="gelu"``, or
-SwiGLU), the training forward and
-its ``loss_fn``, dense-cache prefill/decode and the paged serving paths,
-speculative verify included.  Every weight matmul goes through
-``layers.weight_matmul``, so a block leaf may be a quantized
-``core.quant.QuantLeaf``.  The reference's other block options, MoE,
-prefix ``embeds`` and chunked cross-entropy are not ported yet
+``lax.scan``.  Ported: the dense block with GQA/MQA attention and RoPE,
+the optional QKV biases (qwen2.5) and qk-norm (qwen3), full causal
+attention, and the SwiGLU, GeGLU or 2-matrix GELU FFN; the training
+forward and its ``loss_fn``, dense-cache prefill/decode and the paged
+serving paths, speculative verify included.  The modality frontends
+(paligemma, musicgen) are stubs, as in the reference: a batch may carry
+precomputed prefix embeddings ``embeds [B, P, D]``, concatenated before
+the token embeddings, and the loss is taken on the token positions.
+Every weight matmul goes through ``layers.weight_matmul``, so a block
+leaf may be a quantized ``core.quant.QuantLeaf``.  MoE, the
+sliding-window ring cache and chunked cross-entropy are not ported yet
 (ROADMAP.md).
 
 The caches are updated in place (the reference returns new arrays): the
@@ -56,11 +59,18 @@ class TransformerLM:
             "wv": PSpec((L, D, KV * dh), ("layers", "embed", "kv_heads"), scale=s_attn),
             "wo": PSpec((L, H * dh, D), ("layers", "heads", "embed"), scale=s_attn),
             "ln2": PSpec((L, D), ("layers", "embed"), "zeros"),
-            "w_up": PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn),
-            "w_down": PSpec((L, F, D), ("layers", "ff", "embed"), scale=s_ff),
         }
+        if c.qkv_bias:
+            blocks["bq"] = PSpec((L, H * dh), ("layers", "heads"), "zeros")
+            blocks["bk"] = PSpec((L, KV * dh), ("layers", "kv_heads"), "zeros")
+            blocks["bv"] = PSpec((L, KV * dh), ("layers", "kv_heads"), "zeros")
+        if c.qk_norm:
+            blocks["q_norm"] = PSpec((L, dh), ("layers", None), "zeros")
+            blocks["k_norm"] = PSpec((L, dh), ("layers", None), "zeros")
         if c.activation != "gelu":
             blocks["w_gate"] = PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn)
+        blocks["w_up"] = PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn)
+        blocks["w_down"] = PSpec((L, F, D), ("layers", "ff", "embed"), scale=s_ff)
         return {
             "embed": PSpec((V, D), ("vocab", "embed"), scale=1.0),
             "blocks": blocks,
@@ -77,14 +87,28 @@ class TransformerLM:
         return sin[None], cos[None]
 
     def _qkv(self, p, h, sin, cos):
-        """Projections and RoPE of the pre-normed h [B, S, D] -> q [B, S, H,
-        dh], k/v [B, S, KV, dh]."""
+        """Projections of the pre-normed h [B, S, D] -> q [B, S, H, dh], k/v
+        [B, S, KV, dh], in the reference's order: the matmuls, the QKV
+        biases (``qkv_bias``), the head reshape, the per-head RMS norms of q
+        and k (``qk_norm``), then RoPE.  Every path that builds q and k
+        (training forward, prefill, decode, paged decode and verify) comes
+        through here."""
         c = self.cfg
         B, S, _ = h.shape
         dh, H, KV = c.head_dim, c.n_heads, c.n_kv_heads
-        q = layers.weight_matmul(h, p["wq"]).reshape(B, S, H, dh)
-        k = layers.weight_matmul(h, p["wk"]).reshape(B, S, KV, dh)
-        v = layers.weight_matmul(h, p["wv"]).reshape(B, S, KV, dh)
+        q = layers.weight_matmul(h, p["wq"])
+        k = layers.weight_matmul(h, p["wk"])
+        v = layers.weight_matmul(h, p["wv"])
+        if c.qkv_bias:
+            q = q + p["bq"].to(q.dtype)
+            k = k + p["bk"].to(k.dtype)
+            v = v + p["bv"].to(v.dtype)
+        q = q.reshape(B, S, H, dh)
+        k = k.reshape(B, S, KV, dh)
+        v = v.reshape(B, S, KV, dh)
+        if c.qk_norm:
+            q = layers.rms_norm(q, p["q_norm"], c.norm_eps)
+            k = layers.rms_norm(k, p["k_norm"], c.norm_eps)
         return layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos), v
 
     def _ln1(self, p, x):
@@ -122,15 +146,25 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def hidden_states(self, params, batch, collect_kv: bool = False, grad: bool = False):
-        """Final-norm hidden states [B, S, D] and, with ``collect_kv``, the
-        per-layer (k, v) stacked as [L, B, S, KV, dh].  ``grad``: the
-        attention runs ``flash_attention_plain``, which autograd can
-        differentiate (the first-order step's forward)."""
-        c = self.cfg
+    @staticmethod
+    def _embed_inputs(params, batch) -> torch.Tensor:
+        """Token embeddings [B, S, D], after the batch's optional prefix
+        ``embeds`` [B, P, D] (cast to the embeddings' dtype): [B, P + S, D]."""
         # a gather; its gradient sums in a fixed order (indexing's
         # accumulate=True backward on the CPU does not)
         x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+        if batch.get("embeds") is not None:
+            x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+        return x
+
+    def hidden_states(self, params, batch, collect_kv: bool = False, grad: bool = False):
+        """Final-norm hidden states [B, P + S, D] (P prefix embeddings, if
+        the batch has them) and, with ``collect_kv``, the per-layer (k, v)
+        stacked as [L, B, P + S, KV, dh].  ``grad``: the attention runs
+        ``flash_attention_plain``, which autograd can differentiate (the
+        first-order step's forward)."""
+        c = self.cfg
+        x = self._embed_inputs(params, batch)
         sin, cos = self._rope(torch.arange(x.shape[1], device=x.device))
         ks, vs = [], []
         for i in range(c.n_layers):
@@ -143,10 +177,12 @@ class TransformerLM:
 
     def loss_fn(self, params, batch, grad: bool = False) -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch`` (tokens, targets and
-        an optional mask, each [B, S]) as an f32 scalar on the device;
+        an optional mask, each [B, S], and optional prefix ``embeds`` [B, P,
+        D], whose P rows the loss drops) as an f32 scalar on the device;
         ``grad`` as in :meth:`hidden_states`."""
         x, _ = self.hidden_states(params, batch, grad=grad)
-        logits = layers.weight_matmul(x, params["lm_head"])
+        P = 0 if batch.get("embeds") is None else batch["embeds"].shape[1]
+        logits = layers.weight_matmul(x[:, P:, :], params["lm_head"])
         return layers.cross_entropy(logits, batch["targets"], batch.get("mask"))
 
     # ------------------------------------------------------------------

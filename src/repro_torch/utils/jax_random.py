@@ -217,15 +217,23 @@ def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return erfinv_f32(u) * _SQRT2
 
 
-def normal(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)`` on ``device``."""
+def normal_chunks(key, n: int, device="cpu"):
+    """``jax.random.normal(key, (n,), float32)`` in pieces: yields (start,
+    the f32 normals of flat indices [start, start + count)), at most
+    ``_CHUNK`` at a time, so a caller can consume each piece (scale it,
+    cast it) without the whole draw in f32."""
     k1, k2 = as_key(key)
-    shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    out = torch.empty(n, dtype=torch.float32, device=device)
     for start in range(0, n, _CHUNK):
         count = min(_CHUNK, n - start)
-        out[start:start + count] = _normal_from_bits(_bits(k1, k2, start, count, device))
+        yield start, _normal_from_bits(_bits(k1, k2, start, count, device))
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``device``."""
+    shape = tuple(int(s) for s in shape)
+    out = torch.empty(math.prod(shape), dtype=torch.float32, device=device)
+    for start, z in normal_chunks(key, out.numel(), device):
+        out[start:start + z.numel()] = z
     return out.reshape(shape)
 
 

@@ -79,6 +79,11 @@ FLASH_CASES = [
     (2, 33, 57, 4, 2, 256, True, 16, 24),
     # hymba-1.5b's prefill past its 1024 window: 25 heads over 5 kv heads
     (1, 1100, 1100, 25, 5, 64, True, 1024, 0),
+    # the dense configs' GQA at dh 128: granite-8b G = 4, qwen2.5-14b G = 5,
+    # yi-34b G = 7
+    (2, 256, 256, 32, 8, 128, True, 0, 0),
+    (2, 256, 256, 40, 8, 128, True, 0, 0),
+    (2, 256, 256, 56, 8, 128, True, 0, 0),
 ]
 
 
@@ -225,6 +230,11 @@ PAGED_CASES = [
     # the kernel must stop at the slot's P pages, in the middle of the table
     # and in its last row
     (4, 8, 4, 64, 8, 3, [25, 7, 0, 25]),
+    # the dense configs' GQA at dh 128 (G = 4, 5, 7), lengths across the
+    # 64-position splits
+    (6, 32, 8, 128, 16, 21, [0, 63, 64, 65, 200, 336]),
+    (6, 40, 8, 128, 16, 21, [7, 63, 0, 129, 318, 336]),
+    (6, 56, 8, 128, 16, 21, [1, 64, 130, 0, 250, 336]),
 ]
 
 
@@ -304,9 +314,15 @@ def _within_bf16_ulp(got: torch.Tensor, want: torch.Tensor, w_in: torch.Tensor) 
 HYMBA_LEAVES = [((2, 3200, 16), 16), ((2, 3200, 100), 24), ((2, 100, 3200), 24),
                 ((2, 3200, 32), 24), ((2, 1600, 320), 24), ((32, 1600), 24),
                 ((32001, 1600), 24), ((1600, 32001), 24)]
+# the dense configs' new leaf shapes: the stacked [L, H·dh] / [L, KV·dh]
+# QKV biases and [L, dh] qk-norm scales (at L = 2, as phase 2 of
+# chip_smoke.py cuts them, and at full depth, where they are low-rank leaves
+# of rank 24), and qwen3-32b's [5120, 8192] projection
+DENSE_LEAVES = [((2, 5120), 2), ((2, 1024), 2), ((2, 128), 2), ((48, 5120), 24),
+                ((48, 1024), 24), ((64, 128), 24), ((5120, 8192), 24)]
 TEZO_CASES = [  # W shape, r
     ((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12), ((24, 32), 1), ((130, 257), 128),
-] + HYMBA_LEAVES
+] + HYMBA_LEAVES + DENSE_LEAVES
 
 
 @pytest.mark.parametrize("shape,r", TEZO_CASES)
@@ -793,6 +809,10 @@ VERIFY_CASES = [  # S, T, H, KV, dh, ps, pps, lengths
     (3, 5, 16, 2, 128, 16, 4, [7, 33, 60]),
     (2, 3, 4, 2, 256, 8, 3, [1, 18]),
     (2, 1, 8, 1, 256, 8, 2, [0, 11]),
+    # the dense configs' GQA at dh 128 at draft_len 4: G = 4, 5 and 7
+    (4, 5, 32, 8, 128, 16, 21, [0, 63, 200, 333]),
+    (4, 5, 40, 8, 128, 16, 21, [64, 0, 129, 318]),
+    (4, 5, 56, 8, 128, 16, 21, [7, 65, 250, 0]),
 ]
 
 
@@ -827,7 +847,8 @@ def test_verify_kernel_vs_plain(cuda, S, T, H, KV, dh, ps, pps, lengths):
     assert (got_m - want_m).abs().max().item() <= F32_ATOL
 
 
-@pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (16, 2, 128), (8, 2, 256)])
+@pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (16, 2, 128), (8, 2, 256), (32, 8, 128),
+                                     (40, 8, 128), (56, 8, 128)])
 def test_verify_t1_bitwise_decode_kernel(cuda, H, KV, dh):
     """A one-token window is the decode kernel, bit for bit, in f32 and
     bf16, at opt-125m's heads, at G = 8 and at head dim 256."""
@@ -845,7 +866,8 @@ SPLIT_LENGTHS = [tdec.SPLIT - 1, tdec.SPLIT, tdec.SPLIT + 1, 2 * tdec.SPLIT + 37
 
 
 @pytest.mark.parametrize("T", [2, 5])
-@pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (25, 5, 64), (32, 4, 128)])
+@pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (25, 5, 64), (32, 4, 128), (40, 8, 128),
+                                     (56, 8, 128)])
 def test_verify_rows_are_bitwise_decode_across_splits(cuda, T, H, KV, dh):
     """Window row t is bitwise the decode kernel at length + t, at G = 1
     (opt-125m), 5 (hymba-1.5b) and 8, in bf16 and f32, with lengths on
