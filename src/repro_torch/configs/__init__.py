@@ -19,6 +19,8 @@ _ARCH_MODULES: dict[str, str] = {
     "qwen3-32b": "qwen3_32b",
     "paligemma-3b": "paligemma_3b",
     "musicgen-medium": "musicgen_medium",
+    "dbrx-132b": "dbrx_132b",
+    "kimi-k2-1t-a32b": "kimi_k2",
 }
 
 

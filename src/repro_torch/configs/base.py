@@ -6,9 +6,11 @@ the dense block and its options (``qkv_bias``, qwen2.5; ``qk_norm``,
 qwen3; the FFN's ``activation``: SwiGLU, GeGLU or the 2-matrix GELU FFN),
 the modality stubs' ``n_prefix_embeds`` (paligemma, musicgen) and the
 hybrid block (hymba-1.5b: sliding ``window`` attention, the Mamba path's
-``ssm_state``, ``ssm_expand`` and ``conv_width``).  The reference's fields
-for MoE and xLSTM, sharding hints and chunked cross-entropy come with a
-registered config that sets them.  There is no ``kernel_mode``: the
+``ssm_state``, ``ssm_expand`` and ``conv_width``) and the MoE block
+(dbrx-132b, kimi-k2: ``n_experts``, ``n_experts_per_token``,
+``moe_capacity_factor``, ``moe_impl``).  The reference's fields for xLSTM,
+sharding hints and chunked cross-entropy come with a registered config
+that sets them.  There is no ``kernel_mode``: the
 tensor's device decides between a kernel and its plain version.
 """
 
@@ -20,7 +22,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | audio | hybrid are ported
+    family: str  # dense | moe | vlm | audio | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +38,14 @@ class ModelConfig:
     # ---- block options ----------------------------------------------------
     activation: str = "swiglu"  # swiglu | geglu | gelu (the 2-matrix FFN)
     norm_eps: float = 1e-6
+    # ---- MoE ------------------------------------------------------------
+    n_experts: int = 0
+    n_experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    # gspmd (scatter dispatch, gather combine) | ep: the reference's expert-
+    # parallel path needs a mesh (ROADMAP.md item 13); without one it takes
+    # the gspmd path, as here
+    moe_impl: str = "gspmd"
     # ---- SSM / hybrid -----------------------------------------------------
     ssm_state: int = 0  # mamba state N (hymba)
     ssm_expand: int = 2  # mamba inner expansion

@@ -37,7 +37,10 @@ static-batch driver it is checked against (counterpart of
 
 Every per-slot op in the decode and verify steps is row-independent, so a
 request's token stream is bitwise-identical whether it is served alone or
-next to arbitrary other requests.  Greedy decoding is ``argmax``.
+next to arbitrary other requests; except on the ``moe`` family, whose
+capacity-bounded routing couples the rows of a call (pad and dead-slot
+tokens take capacity too), in the reference as here, and which therefore
+serves without speculative decoding.  Greedy decoding is ``argmax``.
 Temperature sampling replays the reference's ``jax.random.categorical``
 (``utils.jax_random``) on the logits' device: the draw for a request's emitted
 position p is keyed ``fold_in(threefry_key(seed), p)``, so a request's
@@ -57,6 +60,8 @@ does.
         [--device cpu --smoke]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
         --engine                              # 14.8 B params, bf16, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+        --engine --layers 2                   # full width, depth cut to 2 layers
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         [--device cpu --smoke]                # BatchedServer
 """
@@ -287,6 +292,13 @@ class ServeEngine:
         assert page_size > 0 and page_size & (page_size - 1) == 0, page_size
         if spec_decode and draft_len < 1:
             raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+        if spec_decode and cfg.n_experts > 0:
+            raise NotImplementedError(
+                f"speculative decoding on the moe family ({cfg.name}) is not ported "
+                "(ROADMAP.md Queue C item 2): the reference routes a verify window's "
+                "S·T tokens under one capacity, the port's per-position verify S at a "
+                "time, and the reference's own spec tokens differ from its non-spec ones"
+            )
         self.cfg = cfg
         self.model = build_model(cfg, device)
         if not self.model.supports_paged_decode:
@@ -638,6 +650,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="opt-125m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers (0: as registered)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -682,6 +696,8 @@ def main(argv=None) -> None:
         )
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = cfg.reduced(n_layers=args.layers)
     rng = np.random.default_rng(0)
     size = (args.batch, args.prompt_len)
     prompts = rng.integers(2, cfg.vocab_size, size=size).astype(np.int32)

@@ -13,9 +13,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen2.5-14b --method tezo_adam --steps 3       # 14.8 B params, bf16
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch dbrx-132b --layers 2 --steps 3                 # MoE, full width, 2 layers
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
-Build the model and draw the reference's initial params from ``--seed``.
+Build the model (``--layers N`` cuts the registered config's depth) and
+draw the reference's initial params from ``--seed``, or take the caller's
+``init_params`` (which the run then updates in place).
 ``--pretrain-steps N`` first trains them with N AdamW steps by backprop
 (``optim.fo``, lr 3e-3, batches ``batch_at_step(data, 10_000_000 + s)``, the
 plain attention under autograd); ``--rank-mode spectral`` then picks each
@@ -139,13 +143,17 @@ def train(
     verbose: bool = True,
     device: str | torch.device = "cuda",
     model_cfg: ModelConfig | None = None,
+    init_params: dict | None = None,
     return_state: bool = False,
 ) -> dict:
     """Run ``pretrain_steps`` first-order steps, then ``steps`` ZO steps;
     returns the reference's result dict (plus, with ``return_state``, the
     final ``state`` and the ``setup``: the pretraining's losses and the
     selected ranks).  ``model_cfg`` replaces the registered config (a
-    depth-cut model, say)."""
+    depth-cut model, say).  ``init_params`` (the model's params on its
+    device) replace the seed's draw: a caller that already holds them (a
+    serving engine's, say) saves the draw, and the ZO steps write them in
+    place."""
     _check_ported(mesh=mesh, probe_parallel=probe_parallel, ensemble=ensemble,
                   straggler_prob=straggler_prob, method=method)
     cfg = model_cfg or (get_smoke_config(arch) if smoke else get_config(arch))
@@ -161,7 +169,7 @@ def train(
         probe_parallel=probe_parallel, adaptive_q=adaptive_q, q_max=q_max, seed=seed,
         total_steps=steps,
     )
-    params = model.init(PRNGKey(seed))
+    params = model.init(PRNGKey(seed)) if init_params is None else init_params
     setup: dict = {}
     if pretrain_steps > 0:
         t0 = time.perf_counter()
@@ -286,6 +294,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="opt-125m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers (0: as registered)")
     ap.add_argument("--method", default="tezo_adam",
                     help="tezo, tezo_m, tezo_adam, mezo, mezo_m, mezo_adam, lozo, lozo_m "
                     "or subzo")
@@ -324,6 +334,9 @@ def main(argv=None) -> None:
                     "plain PyTorch versions)")
     args = ap.parse_args(argv)
     kwargs = {k.replace("-", "_"): v for k, v in vars(args).items()}
+    if kwargs.pop("layers"):
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        kwargs["model_cfg"] = cfg.reduced(n_layers=args.layers)
     result = train(**kwargs)
     print(json.dumps({k: v for k, v in result.items() if k != "history"}, indent=1))
 

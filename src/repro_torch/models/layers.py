@@ -180,6 +180,15 @@ def weight_matmul(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def top_k(x: torch.Tensor, k: int) -> tuple:
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order and their indices, the lower index first among equal
+    values (``torch.topk`` promises no order among ties, which in a bf16
+    router's probabilities are common).  A stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def gated_mlp(x, w_gate, w_up, w_down, activation="swiglu"):
     """The reference's ``gated_mlp``: ``act(x @ w_gate) * (x @ w_up) @
     w_down`` with the activation in f32 (SiLU for ``"swiglu"``, the tanh

@@ -1,9 +1,10 @@
 """Unified LM wrapper (counterpart of ``repro.models.model``): one object
 per architecture exposing ``init``, ``loss_fn`` and the serving paths.
-The ``dense``, ``vlm`` and ``audio`` families (``models.transformer``; a
-vlm or audio batch may carry prefix ``embeds [B, P, D]``, the modality
-stubs) and the ``hybrid`` family (``models.hymba``) are ported; only the
-transformer families have the paged serving paths."""
+The ``dense``, ``moe``, ``vlm`` and ``audio`` families
+(``models.transformer``; a vlm or audio batch may carry prefix ``embeds
+[B, P, D]``, the modality stubs) and the ``hybrid`` family
+(``models.hymba``) are ported; only the transformer families have the
+paged serving paths."""
 
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from repro_torch.models.transformer import TransformerLM, torch_dtype
 from repro_torch.utils.device import resolve_device
 
 
-_FAMILIES = {"dense": TransformerLM, "vlm": TransformerLM, "audio": TransformerLM,
-             "hybrid": HymbaLM}
+_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM, "vlm": TransformerLM,
+             "audio": TransformerLM, "hybrid": HymbaLM}
 
 
 class LM:

@@ -1,20 +1,22 @@
-"""Decoder-only transformer LM covering the dense, VLM and audio families
-(counterpart of ``repro.models.transformer``).
+"""Decoder-only transformer LM covering the dense, MoE, VLM and audio
+families (counterpart of ``repro.models.transformer``).
 
 Parameters keep the reference's stacked layout — one ``[L, ...]`` tensor
 per block leaf — and a plain Python loop over layers takes the place of
 ``lax.scan``.  Ported: the dense block with GQA/MQA attention and RoPE,
 the optional QKV biases (qwen2.5) and qk-norm (qwen3), full causal
-attention, and the SwiGLU, GeGLU or 2-matrix GELU FFN; the training
+attention, the SwiGLU, GeGLU or 2-matrix GELU FFN, and the capacity-bounded
+top-k MoE FFN of dbrx-132b and kimi-k2 (the reference's single-device
+``_moe_gspmd``; its expert-parallel ``_moe_ep`` needs a mesh); the training
 forward and its ``loss_fn``, dense-cache prefill/decode and the paged
 serving paths, speculative verify included.  The modality frontends
 (paligemma, musicgen) are stubs, as in the reference: a batch may carry
 precomputed prefix embeddings ``embeds [B, P, D]``, concatenated before
 the token embeddings, and the loss is taken on the token positions.
 Every weight matmul goes through ``layers.weight_matmul``, so a block
-leaf may be a quantized ``core.quant.QuantLeaf``.  MoE, the
-sliding-window ring cache and chunked cross-entropy are not ported yet
-(ROADMAP.md).
+leaf may be a quantized ``core.quant.QuantLeaf`` (the MoE's router and
+expert leaves never are).  The sliding-window ring cache and chunked
+cross-entropy are not ported yet (ROADMAP.md).
 
 The caches are updated in place (the reference returns new arrays): the
 paged pool is the serving engine's largest allocation and a copy per step
@@ -25,6 +27,7 @@ read like the reference.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +39,20 @@ from repro_torch.models.spec import PSpec
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+class MoERoute(NamedTuple):
+    """One call's MoE routing: ``probs [N, E]`` f32, the renormalised
+    ``gates [N, K]``, and per (token, k) entry, token-major, its expert,
+    its 0-based position in that expert's buffer and whether it lies inside
+    ``capacity``."""
+
+    probs: torch.Tensor
+    gates: torch.Tensor
+    experts: torch.Tensor
+    positions: torch.Tensor
+    in_capacity: torch.Tensor
+    capacity: int
 
 
 class TransformerLM:
@@ -67,10 +84,23 @@ class TransformerLM:
         if c.qk_norm:
             blocks["q_norm"] = PSpec((L, dh), ("layers", None), "zeros")
             blocks["k_norm"] = PSpec((L, dh), ("layers", None), "zeros")
-        if c.activation != "gelu":
-            blocks["w_gate"] = PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn)
-        blocks["w_up"] = PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn)
-        blocks["w_down"] = PSpec((L, F, D), ("layers", "ff", "embed"), scale=s_ff)
+        if c.n_experts > 0:
+            E = c.n_experts
+            blocks["router"] = PSpec((L, D, E), ("layers", "embed", None), scale=s_attn)
+            blocks["we_gate"] = PSpec(
+                (L, E, D, F), ("layers", "experts", "embed", "ff_expert"), scale=s_attn
+            )
+            blocks["we_up"] = PSpec(
+                (L, E, D, F), ("layers", "experts", "embed", "ff_expert"), scale=s_attn
+            )
+            blocks["we_down"] = PSpec(
+                (L, E, F, D), ("layers", "experts", "ff_expert", "embed"), scale=s_ff
+            )
+        else:
+            if c.activation != "gelu":
+                blocks["w_gate"] = PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn)
+            blocks["w_up"] = PSpec((L, D, F), ("layers", "embed", "ff"), scale=s_attn)
+            blocks["w_down"] = PSpec((L, F, D), ("layers", "ff", "embed"), scale=s_ff)
         return {
             "embed": PSpec((V, D), ("vocab", "embed"), scale=1.0),
             "blocks": blocks,
@@ -129,7 +159,60 @@ class TransformerLM:
     def _ffn(self, p, x):
         c = self.cfg
         h = layers.rms_norm(x, p["ln2"], c.norm_eps)
+        if c.n_experts > 0:
+            return self._moe(p, h)
         return layers.gated_mlp(h, p.get("w_gate"), p["w_up"], p["w_down"], c.activation)
+
+    def moe_route(self, p, xt) -> MoERoute:
+        """The routing of the tokens ``xt [N, D]`` (all of one call) by layer
+        params ``p``: the reference's ``_moe_gspmd`` up to its dispatch.  The
+        router logits come from a matmul in the weight dtype, cast to f32;
+        softmax, top-k (ties to the lower expert, ``layers.top_k``), the
+        gates renormalised by ``max(sum, 1e-9)``; then each (token, k) entry
+        takes the next position of its expert, token-major, and is dropped
+        (weight 0) at or past ``capacity = max(1, ceil(N·K/E·factor))``."""
+        c = self.cfg
+        N = xt.shape[0]
+        E, K = c.n_experts, c.n_experts_per_token
+        capacity = max(1, int(math.ceil(N * K / E * c.moe_capacity_factor)))
+        probs = torch.softmax(layers.weight_matmul(xt, p["router"]).float(), dim=-1)
+        gate, eidx = layers.top_k(probs, K)  # [N, K]
+        gate = gate / torch.clamp_min(gate.sum(dim=-1, keepdim=True), 1e-9)
+        e_flat = eidx.reshape(-1)  # [N*K], token-major then k
+        onehot = torch.nn.functional.one_hot(e_flat, E)
+        pos = torch.cumsum(onehot, dim=0).gather(1, e_flat[:, None])[:, 0] - 1
+        in_cap = (pos < capacity) & (pos >= 0)
+        return MoERoute(probs, gate, e_flat, pos, in_cap, capacity)
+
+    def _moe(self, p, h):
+        """Capacity-bounded top-k MoE with scatter dispatch and gather
+        combine: the reference's ``_moe_gspmd``, step for step, on one
+        device (``moe_impl="ep"`` takes it too, as the reference does
+        without a mesh).  All ``N = B·S`` tokens of the call route under one
+        capacity (:meth:`moe_route`), pad and dead-slot tokens included.
+        The expert products are batched matmuls over ``[E, C, D]``, as the
+        reference's einsums run outside any kernel."""
+        c = self.cfg
+        B, S, D = h.shape
+        E, K = c.n_experts, c.n_experts_per_token
+        xt = h.reshape(B * S, D)
+        r = self.moe_route(p, xt)
+        C = r.capacity
+        dest = r.experts * C + torch.clamp(r.positions, 0, C - 1)  # rows of [E·C, D]
+        w = r.in_capacity.to(xt.dtype)[:, None]
+        src = torch.repeat_interleave(xt, K, dim=0) * w  # [N*K, D]
+        buf = xt.new_zeros(E * C, D).index_add(0, dest, src).view(E, C, D)
+        ge = layers.weight_matmul(buf, p["we_gate"])  # [E, C, F]
+        ue = layers.weight_matmul(buf, p["we_up"])
+        if c.activation == "swiglu":
+            ae = torch.nn.functional.silu(ge.float()).to(ue.dtype)
+        else:
+            ae = torch.nn.functional.gelu(ge.float(), approximate="tanh").to(ue.dtype)
+        ye = layers.weight_matmul(ae * ue, p["we_down"])  # [E, C, D]
+
+        gathered = ye.reshape(E * C, D).index_select(0, dest)  # [N*K, D]
+        gathered = gathered * (r.gates.reshape(-1)[:, None].to(gathered.dtype) * w)
+        return gathered.reshape(B * S, K, D).sum(dim=1).reshape(B, S, D)
 
     def _block(self, p, x, sin, cos, q_offset, grad=False):
         o, kv = self._attn(p, x, sin, cos, q_offset, grad)
@@ -285,7 +368,9 @@ class TransformerLM:
         page 0, as does any write at or past the slot's page capacity (the
         reference's capacity-clamped ``writable`` routing).  Every per-slot
         op is row-independent, which makes a request's token stream bitwise
-        invariant to the other slots.  Returns (logits [S, V], cache)."""
+        invariant to the other slots, except the MoE's routing: its S tokens
+        (dead slots' too) share one capacity, as in the reference.  Returns
+        (logits [S, V], cache)."""
         logits, cache = self.verify_step_paged(params, cache, block_tables, lengths,
                                                tokens[:, None])
         return logits[:, 0], cache

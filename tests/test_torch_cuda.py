@@ -84,6 +84,9 @@ FLASH_CASES = [
     (2, 256, 256, 32, 8, 128, True, 0, 0),
     (2, 256, 256, 40, 8, 128, True, 0, 0),
     (2, 256, 256, 56, 8, 128, True, 0, 0),
+    # kimi-k2's 64 heads over 8 kv heads of 112: the first head dim that
+    # fills its 128-wide instance only in part
+    (2, 256, 256, 64, 8, 112, True, 0, 0),
 ]
 
 
@@ -120,6 +123,8 @@ FLASH_TILE_CASES = [
     (1, 65, 65, 2, 2, 256, True, 0, 0),
     (1, 40, 97, 2, 1, 256, True, 33, 57),
     (1, 31, 45, 2, 2, 64, False, 0, 0),
+    (1, 100, 163, 8, 1, 112, True, 50, 63),
+    (2, 65, 65, 16, 2, 112, True, 0, 0),
 ]
 
 
@@ -235,6 +240,8 @@ PAGED_CASES = [
     (6, 32, 8, 128, 16, 21, [0, 63, 64, 65, 200, 336]),
     (6, 40, 8, 128, 16, 21, [7, 63, 0, 129, 318, 336]),
     (6, 56, 8, 128, 16, 21, [1, 64, 130, 0, 250, 336]),
+    # kimi-k2's G = 8 at dh 112
+    (6, 64, 8, 112, 16, 21, [0, 63, 64, 65, 200, 336]),
 ]
 
 
@@ -293,6 +300,51 @@ def test_engine_on_card_matches_cpu_and_uses_kernels(cuda):
         np.testing.assert_array_equal(solo["s"]["tokens"], res_gpu[r.id]["tokens"])
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_engine_and_step_on_card_match_cpu(cuda, arch):
+    """An MoE smoke model in f32 from the same weights: the engine's greedy
+    streams on the card equal the CPU's under the same schedule (routing
+    couples a call's tokens, so solo == mixed is not the bar), through both
+    attention kernels; one TeZO-Adam step's loss within 1e-5 relative and
+    params within 1e-5, its expert leaves through the weight kernels."""
+    from repro_torch.utils.tree import map_with_path
+
+    cfg = get_smoke_config(arch)
+    kw = dict(max_concurrent_decodes=3, max_prompt_len=16, max_new_tokens=8, page_size=8)
+    cpu = ServeEngine(cfg, device="cpu", seed=1, **kw)
+    gpu = ServeEngine(cfg, map_with_path(lambda _, w: w.to(cuda), cpu.params), device=cuda, **kw)
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=f"r{i}", tokens=rng.integers(2, 256, size=n).astype(np.int32),
+                    max_new=6, arrival=a)
+            for i, (n, a) in enumerate(zip((5, 8, 13, 16, 3), (0, 0, 0, 1, 4)))]
+    gpu.warmup()
+    nf, nd = tflash.flash_attention.launches, tdec.paged_decode_attention.launches
+    res_gpu, stats = gpu.serve(reqs, step_clock=True)
+    assert tflash.flash_attention.launches - nf == cfg.n_layers * len(reqs)
+    assert tdec.paged_decode_attention.launches - nd == cfg.n_layers * stats["decode_steps"]
+    res_cpu, _ = cpu.serve(reqs, step_clock=True)
+    for r in reqs:
+        np.testing.assert_array_equal(res_gpu[r.id]["tokens"], res_cpu[r.id]["tokens"])
+
+    zc = ZOConfig(method="tezo_adam", rank=8, lr=1e-3)
+    batch = batch_at_step(DataConfig(seq_len=32, global_batch=4, vocab_size=256), 0)
+    out = {}
+    for dev, params in (("cpu", cpu.params), (cuda, gpu.params)):
+        model = build_model(cfg, dev)
+        state = init_zo_state(map_with_path(lambda _, w: w.clone(), params), zc)
+        n0 = tadam.tezo_adam_update.launches
+        state, metrics = build_zo_train_step(model.loss_fn, zc)(
+            state, {k: torch.from_numpy(x).to(dev) for k, x in batch.items()})
+        out[str(dev)] = (float(metrics["loss"]), dict(flatten_with_path(state.params)),
+                         tadam.tezo_adam_update.launches - n0, set(state.mstate["factors"]))
+    (lc, pc, _, _), (lg, pg, n_adam, lowrank) = out["cpu"], out[str(cuda)]
+    assert n_adam == len(lowrank) and {f"['blocks']['{n}']" for n in
+                                       ("we_gate", "we_up", "we_down")} <= lowrank
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for path, w in pg.items():
+        assert (w.cpu() - pc[path]).abs().max().item() <= 1e-5, path
+
+
 # --------------------------------------------------------------------------
 # the weight-pass kernels and the ZO step
 # --------------------------------------------------------------------------
@@ -320,9 +372,14 @@ HYMBA_LEAVES = [((2, 3200, 16), 16), ((2, 3200, 100), 24), ((2, 100, 3200), 24),
 # of rank 24), and qwen3-32b's [5120, 8192] projection
 DENSE_LEAVES = [((2, 5120), 2), ((2, 1024), 2), ((2, 128), 2), ((48, 5120), 24),
                 ((48, 1024), 24), ((64, 128), 24), ((5120, 8192), 24)]
+# the MoE leaves: expert leaves with two batch dims (L, E), [L, E, D, F] and
+# [L, E, F, D] (rows and columns off the tile multiples in one), and a
+# router [L, D, E] of kimi-k2's 384 experts
+MOE_LEAVES = [((2, 16, 96, 200), 24), ((2, 16, 200, 96), 24), ((1, 6, 130, 257), 12),
+              ((2, 7168, 384), 24)]
 TEZO_CASES = [  # W shape, r
     ((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12), ((24, 32), 1), ((130, 257), 128),
-] + HYMBA_LEAVES + DENSE_LEAVES
+] + HYMBA_LEAVES + DENSE_LEAVES + MOE_LEAVES
 
 
 @pytest.mark.parametrize("shape,r", TEZO_CASES)
@@ -813,6 +870,8 @@ VERIFY_CASES = [  # S, T, H, KV, dh, ps, pps, lengths
     (4, 5, 32, 8, 128, 16, 21, [0, 63, 200, 333]),
     (4, 5, 40, 8, 128, 16, 21, [64, 0, 129, 318]),
     (4, 5, 56, 8, 128, 16, 21, [7, 65, 250, 0]),
+    # kimi-k2's G = 8 at dh 112
+    (4, 5, 64, 8, 112, 16, 21, [0, 63, 200, 333]),
 ]
 
 
@@ -848,7 +907,7 @@ def test_verify_kernel_vs_plain(cuda, S, T, H, KV, dh, ps, pps, lengths):
 
 
 @pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (16, 2, 128), (8, 2, 256), (32, 8, 128),
-                                     (40, 8, 128), (56, 8, 128)])
+                                     (40, 8, 128), (56, 8, 128), (64, 8, 112)])
 def test_verify_t1_bitwise_decode_kernel(cuda, H, KV, dh):
     """A one-token window is the decode kernel, bit for bit, in f32 and
     bf16, at opt-125m's heads, at G = 8 and at head dim 256."""
@@ -867,7 +926,7 @@ SPLIT_LENGTHS = [tdec.SPLIT - 1, tdec.SPLIT, tdec.SPLIT + 1, 2 * tdec.SPLIT + 37
 
 @pytest.mark.parametrize("T", [2, 5])
 @pytest.mark.parametrize("H,KV,dh", [(12, 12, 64), (25, 5, 64), (32, 4, 128), (40, 8, 128),
-                                     (56, 8, 128)])
+                                     (56, 8, 128), (64, 8, 112)])
 def test_verify_rows_are_bitwise_decode_across_splits(cuda, T, H, KV, dh):
     """Window row t is bitwise the decode kernel at length + t, at G = 1
     (opt-125m), 5 (hymba-1.5b) and 8, in bf16 and f32, with lengths on

@@ -1,10 +1,12 @@
-"""The port's other dense-family configs against the reference, on the CPU:
-granite-8b, yi-34b, qwen2.5-14b (QKV biases), qwen3-32b (qk-norm),
-paligemma-3b (family ``vlm``: GeGLU, prefix embeds) and musicgen-medium
-(family ``audio``: prefix embeds), each at its ``*-smoke`` config.
+"""The port's other transformer-family configs against the reference, on
+the CPU: granite-8b, yi-34b, qwen2.5-14b (QKV biases), qwen3-32b (qk-norm),
+paligemma-3b (family ``vlm``: GeGLU, prefix embeds), musicgen-medium
+(family ``audio``: prefix embeds), dbrx-132b and kimi-k2-1t-a32b (family
+``moe``: router and expert leaves), each at its ``*-smoke`` config
+(tests/test_torch_moe.py holds the MoE block itself).
 
-* The registry resolves the six ids with the reference's fields, and
-  ``LM`` builds the ``vlm`` and ``audio`` families.
+* The registry resolves the eight ids with the reference's fields, and
+  ``LM`` builds the ``vlm``, ``audio`` and ``moe`` families.
 * ``init`` is bitwise the reference's ``init`` for the seed (f32, and bf16
   for qwen2.5-14b-smoke, whose chunked scale-and-cast must stay bitwise).
 * ``loss_fn`` from bridged numpy params within 1e-5 relative of the
@@ -18,7 +20,8 @@ paligemma-3b (family ``vlm``: GeGLU, prefix embeds) and musicgen-medium
   against its Pallas kernels under the interpreter, logits within 1e-4
   (the reference's XLA twin of the paged kernels rounds the softmax
   weights to the bf16 cache dtype; ROADMAP.md fact 2).
-* A reference checkpoint holding the new leaves reads back bit-exact."""
+* A reference checkpoint holding the new leaves (the MoE's 4-D expert
+  leaves among them) reads back bit-exact."""
 
 from dataclasses import fields, replace
 
@@ -44,7 +47,7 @@ from repro_torch.utils.tree import flatten_with_path
 from _torch_ref import numpy_params, to_jax
 
 ARCHS = ["granite-8b", "yi-34b", "qwen2.5-14b", "qwen3-32b", "paligemma-3b",
-         "musicgen-medium"]
+         "musicgen-medium", "dbrx-132b", "kimi-k2-1t-a32b"]
 SERVED = ["qwen2.5-14b", "qwen3-32b"]
 ATOL = 1e-4
 
@@ -240,11 +243,12 @@ def test_paged_prefill_decode_and_verify_match(served):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", SERVED + ["paligemma-3b"])
+@pytest.mark.parametrize("arch", SERVED + ["paligemma-3b", "dbrx-132b", "kimi-k2-1t-a32b"])
 def test_reference_checkpoint_with_new_leaves_reads_bit_exact(arch, tmp_path):
     """bf16 params holding the QKV-bias or qk-norm leaves (or GeGLU's
-    gate) through the bridge and through the reference checkpointer's
-    on-disk layout: same keys, shapes and bits."""
+    gate, or the MoE's router and [L, E, ...] expert leaves) through the
+    bridge and through the reference checkpointer's on-disk layout: same
+    keys, shapes and bits."""
     cfg = get_smoke_config(arch)
     ref = numpy_params(cfg, seed=4, dtype=jnp.bfloat16)
     want = {p: w for p, w in flatten_with_path(ref)}
@@ -259,4 +263,9 @@ def test_reference_checkpoint_with_new_leaves_reads_bit_exact(arch, tmp_path):
             np.testing.assert_array_equal(_bits(got[path]), _bits(w), err_msg=path)
     blocks = ref["blocks"]
     assert ("bq" in blocks) == cfg.qkv_bias and ("q_norm" in blocks) == cfg.qk_norm
-    assert ("w_gate" in blocks) == (cfg.activation != "gelu")
+    moe = {"router", "we_gate", "we_up", "we_down"}
+    if cfg.n_experts:
+        assert moe <= blocks.keys() and "w_up" not in blocks
+        assert blocks["we_down"].shape == (cfg.n_layers, cfg.n_experts, cfg.d_ff, cfg.d_model)
+    else:
+        assert not moe & blocks.keys() and ("w_gate" in blocks) == (cfg.activation != "gelu")

@@ -1,6 +1,7 @@
-"""One TeZO-Adam step of the port on qwen2.5-14b-smoke (QKV biases) and
-qwen3-32b-smoke (qk-norm) against the reference's ``kernel_mode="xla"``
-step, on the CPU, from the same numpy params (nonzero biases and norm
+"""One TeZO-Adam step of the port on qwen2.5-14b-smoke (QKV biases),
+qwen3-32b-smoke (qk-norm), dbrx-132b-smoke and kimi-k2-smoke (MoE: expert
+leaves with batch dims (L, E); kimi-k2's router of 8 experts is low-rank,
+dbrx's of 4 is not) against the reference's ``kernel_mode="xla"`` step, on the CPU, from the same numpy params (nonzero biases and norm
 scales): the loss within 1e-5 relative, params and factors within 1e-5,
 the κ-scaled τ-space and dense moments within 1e-3 of each moment's
 largest entry (the two frameworks sum matmuls in other orders, and κ =
@@ -10,7 +11,8 @@ opt-125m so).
 The smoke configs run at 8 layers instead of 2: the reference's
 ``is_lowrank_leaf`` counts a stacked ``[L, n]`` leaf as a matrix only once
 L >= 8, so only there are the stacked QKV biases and qk-norm scales (and
-the layer norms) perturbed as low-rank leaves, as they are at full width
+the layer norms) perturbed as low-rank leaves (the expert leaves and
+kimi-k2's router are at any depth), as they are at full width
 (ROADMAP.md fact 12).  At 2 layers they would take the dense perturbation
 that tests/test_torch_train.py already holds."""
 
@@ -41,6 +43,8 @@ DATA = dict(seq_len=32, global_batch=4, vocab_size=256, seed=0)
 CASES = [
     ("qwen2.5-14b", ("bq", "bk", "bv", "ln1", "ln2")),
     ("qwen3-32b", ("q_norm", "k_norm", "ln1", "ln2")),
+    ("dbrx-132b", ("we_gate", "we_up", "we_down", "ln1", "ln2")),
+    ("kimi-k2-1t-a32b", ("router", "we_gate", "we_up", "we_down", "ln1", "ln2")),
 ]
 LAYERS = 8
 
@@ -65,6 +69,7 @@ def test_tezo_adam_step_matches_reference_xla(arch, stacked):
     params = params_from_numpy(np_params)
     lowrank = {p for p, w in flatten_with_path(params) if is_lowrank_leaf(p, w)}
     assert {f"['blocks']['{n}']" for n in stacked} <= lowrank
+    assert ("['blocks']['router']" in lowrank) == (cfg.n_experts >= 8)
     zc = ZOConfig(**kw)
     state = init_zo_state(params, zc)
     assert set(state.mstate["factors"]) == lowrank
