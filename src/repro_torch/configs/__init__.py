@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only the architectures the port has reached are registered; any other id
-raises ``KeyError`` naming the ROADMAP queue that tracks it.
+Every architecture of the reference is registered; any other id raises
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -21,15 +21,13 @@ _ARCH_MODULES: dict[str, str] = {
     "musicgen-medium": "musicgen_medium",
     "dbrx-132b": "dbrx_132b",
     "kimi-k2-1t-a32b": "kimi_k2",
+    "xlstm-350m": "xlstm_350m",
 }
 
 
 def _module(arch_id: str):
     if arch_id not in _ARCH_MODULES:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md Queue A, item 12b "
-            f"'Other model families'); available: {sorted(_ARCH_MODULES)}"
-        )
+        raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
 
 

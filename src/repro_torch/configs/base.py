@@ -8,10 +8,12 @@ the modality stubs' ``n_prefix_embeds`` (paligemma, musicgen) and the
 hybrid block (hymba-1.5b: sliding ``window`` attention, the Mamba path's
 ``ssm_state``, ``ssm_expand`` and ``conv_width``) and the MoE block
 (dbrx-132b, kimi-k2: ``n_experts``, ``n_experts_per_token``,
-``moe_capacity_factor``, ``moe_impl``).  The reference's fields for xLSTM,
-sharding hints and chunked cross-entropy come with a registered config
-that sets them.  There is no ``kernel_mode``: the
-tensor's device decides between a kernel and its plain version.
+``moe_capacity_factor``, ``moe_impl``) and the xLSTM block (xlstm-350m:
+``slstm_layers``, ``mlstm_chunk``).  The reference's sharding hints and
+chunked cross-entropy come with a registered config that sets them.  There
+is no ``kernel_mode``: the tensor's device decides between a kernel and its
+plain version, and between the mLSTM's sequential and chunkwise forms
+(``models.xlstm``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | vlm | audio | hybrid are ported
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,7 +51,11 @@ class ModelConfig:
     # ---- SSM / hybrid -----------------------------------------------------
     ssm_state: int = 0  # mamba state N (hymba)
     ssm_expand: int = 2  # mamba inner expansion
+    slstm_layers: tuple = ()  # xlstm: which layer indices are sLSTM
     conv_width: int = 4  # mamba depthwise conv width
+    # 0: the device decides (sequential on the CPU, chunks of 256 on the
+    # card); > 0: chunkwise-parallel mLSTM with this chunk size
+    mlstm_chunk: int = 0
     # ---- frontends (stubs, as in the reference) ---------------------------
     n_prefix_embeds: int = 0  # precomputed modality embeddings (vlm/audio)
     # ---- numerics ---------------------------------------------------------

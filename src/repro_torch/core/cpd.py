@@ -23,6 +23,7 @@ lives there too and multiplies the draw before it is copied to the device.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -149,6 +150,24 @@ def reconstruct_squared(factor: CPDFactor, tau_sq: torch.Tensor) -> torch.Tensor
     v2 = factor.v * factor.v
     ut = u2 * tau_sq[..., None, :].to(u2.dtype)
     return torch.matmul(ut, v2.transpose(-1, -2))
+
+
+def num_sampled_elements_per_step(params: Any, factors: FactorTree) -> int:
+    """The fresh random scalars one optimization step draws, the quantity
+    the paper's Table 2 compares (the reference's count): a low-rank leaf
+    draws τ, r per batch element, any other leaf its every element."""
+    count = 0
+
+    def visit(path: str, leaf: Any) -> Any:
+        nonlocal count
+        if path in factors:
+            count += math.prod(factors[path].batch) * factors[path].rank
+        else:
+            count += leaf.numel()
+        return leaf
+
+    map_with_path(visit, params)
+    return count
 
 
 def dense_noise(leaf: torch.Tensor, key_t, path: str, probe: int = 0) -> torch.Tensor:

@@ -51,9 +51,9 @@ window's position t draws with the key of emitted position
 spec stream replays the non-spec stream token for token.
 
 ``BatchedServer`` serves every family with ``prefill`` / ``decode_step``
-(the dense and the hybrid ones); ``ServeEngine`` takes only models with
-the paged decode path, and raises for the hybrid family as the reference
-does.
+(the dense, hybrid and ssm ones); ``ServeEngine`` takes only models with
+the paged decode path, and raises for the recurrent (hybrid and ssm)
+families as the reference does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-125m \
         --engine --batch 8 --prompt-len 32 --max-new 16 [--spec-decode] \
@@ -64,6 +64,8 @@ does.
         --engine --layers 2                   # full width, depth cut to 2 layers
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         [--device cpu --smoke]                # BatchedServer
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        [--device cpu --smoke]                # BatchedServer, the recurrent state as cache
 """
 
 from __future__ import annotations
@@ -573,8 +575,8 @@ class ServeEngine:
 
 class BatchedServer:
     """Static-batch driver: one prefill, lockstep decode, rows frozen at
-    EOS.  Kept as the engine's oracle and for the recurrent (hybrid) family
-    the paged engine does not cover."""
+    EOS.  Kept as the engine's oracle and for the recurrent (hybrid and ssm)
+    families the paged engine does not cover."""
 
     def __init__(self, cfg, params=None, max_len: int = 512, seed: int = 0,
                  device: str | torch.device = "cuda"):

@@ -15,6 +15,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch dbrx-132b --layers 2 --steps 3                 # MoE, full width, 2 layers
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch xlstm-350m --method tezo_adam --steps 3        # xLSTM, no kernel in the forward
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
 Build the model (``--layers N`` cuts the registered config's depth) and
@@ -22,19 +24,22 @@ draw the reference's initial params from ``--seed``, or take the caller's
 ``init_params`` (which the run then updates in place).
 ``--pretrain-steps N`` first trains them with N AdamW steps by backprop
 (``optim.fo``, lr 3e-3, batches ``batch_at_step(data, 10_000_000 + s)``, the
-plain attention under autograd); ``--rank-mode spectral`` then picks each
-low-rank leaf's rank from the (pretrained) weights by the paper's Eq. 7
+plain attention and scan under autograd; every family); ``--rank-mode
+spectral`` then picks each low-rank leaf's rank from the (pretrained)
+weights by the paper's Eq. 7
 (``core.rank.select_ranks``, numpy on the host).  Then draw the ZO state
 and loop: prefetched batch → pinned non-blocking copy → one ZO
 step (the weight passes on the ``tezo_perturb`` / ``tezo_adam_update``
 kernels for the TeZO family, on ``noise_perturb`` / ``noise_update`` for
 the MeZO family, on ``tezo_perturb`` for LOZO and on ``subzo_perturb`` for
-SubZO, the forwards on the flash-attention kernel), with the losses left on
-the device and read once per log boundary.  ``--weight-quant nf4|lut3|lut4``
+SubZO, the forwards on the flash-attention kernel, and Hymba's on the
+selective scan too; xLSTM's forward runs no kernel), with the losses left
+on the device and read once per log boundary.  ``--weight-quant nf4|lut3|lut4``
 stores the transformer block matmul weights as packed LUT-quantized leaves
 (``core.quant``): their forwards run on the ``quant_matmul`` kernel, the
 TeZO family perturbs and updates their r-vector ``acc`` and the MeZO family
-their dense ``nacc`` buffer.  On the card, every step after
+their dense ``nacc`` buffer; a tree without such leaves (xLSTM's) raises,
+as the reference's ``quantize_params`` does.  On the card, every step after
 the first runs under ``torch.cuda.set_sync_debug_mode("error")``: a step
 that waited on the device would raise.  ``--adaptive-q`` grows q at a log
 boundary (``core.adaptive``), outside that guard, and rebuilds the step.
@@ -42,8 +47,7 @@ Prints the reference's JSON result (``final_eval_loss``, the final
 ``q_probes`` and the rest) without the history.
 
 Options whose modules are not ported raise and name their ROADMAP.md item:
-``--mesh``, ``--probe-parallel`` and ``--ensemble``; ``--pretrain-steps``
-with the hybrid family (``LM.fo_loss_fn``).
+``--mesh``, ``--probe-parallel`` and ``--ensemble``.
 """
 
 from __future__ import annotations

@@ -15,6 +15,10 @@ As in the reference, all layers use the sliding window.
 
 The serving cache is updated in place (the reference returns new arrays);
 ``pos`` is a host int.
+
+The first-order step's forward (``grad=True``) runs the two kernels' plain
+versions, named at their call sites, since the kernels have no backward:
+``flash_attention_plain`` with the window and ``selective_scan_plain``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.selective_scan import selective_scan_plain
 from repro_torch.models import layers
 from repro_torch.models.spec import PSpec
 from repro_torch.models.transformer import TransformerLM, torch_dtype
@@ -88,18 +94,19 @@ class HymbaLM:
     # ------------------------------------------------------------------
     # mamba path
     # ------------------------------------------------------------------
-    def _ssm_scan(self, p, xc, dt, b_in, c_in, h0):
+    def _ssm_scan(self, p, xc, dt, b_in, c_in, h0, grad=False):
         """xc, dt [B,S,Di]; b_in, c_in [B,S,N]; h0 [B,Di,N] f32 ->
-        (y [B,S,Di] f32 with the D∘x skip, h_last)."""
+        (y [B,S,Di] f32 with the D∘x skip, h_last).  ``grad``: the plain
+        scan, which autograd can differentiate."""
         from repro_torch.core import dispatch
 
         a = -torch.exp(p["a_log"].float())  # [Di, N]
-        y, h_last = dispatch.selective_scan_fwd(
-            xc.float(), dt.float(), a, b_in.float(), c_in.float(), h0)
+        scan = selective_scan_plain if grad else dispatch.selective_scan_fwd
+        y, h_last = scan(xc.float(), dt.float(), a, b_in.float(), c_in.float(), h0)
         y = y + xc.float() * p["d_skip"].float()
         return y, h_last
 
-    def _mamba(self, p, h, ssm_state=None, conv_state=None):
+    def _mamba(self, p, h, ssm_state=None, conv_state=None, grad=False):
         """h [B,S,D] (pre-normed) -> (out [B,S,D], ssm_state, conv_state)."""
         c = self.cfg
         B, S, _ = h.shape
@@ -125,18 +132,22 @@ class HymbaLM:
         dt = F.softplus(dt.float() + p["dt_bias"].float())
         if ssm_state is None:
             ssm_state = torch.zeros((B, Di, N), dtype=torch.float32, device=h.device)
-        y, h_last = self._ssm_scan(p, xc, dt, b_in, c_in, ssm_state)
+        y, h_last = self._ssm_scan(p, xc, dt, b_in, c_in, ssm_state, grad)
         y = y.to(h.dtype) * F.silu(res.float()).to(h.dtype)
         return layers.weight_matmul(y, p["w_ssm_out"]), h_last, new_conv_state
 
     # ------------------------------------------------------------------
     # attention path and the block
     # ------------------------------------------------------------------
-    def _attn(self, p, h, sin, cos):
+    def _attn(self, p, h, sin, cos, grad=False):
         c = self.cfg
         B, S, _ = h.shape
         q, k, v = self._qkv(p, h, sin, cos)
-        o = layers.attention(q, k, v, window=c.window, chunked_min_seq=c.attn_chunked_min_seq)
+        if grad:  # no kernel has a backward: autograd runs through the plain version
+            o = flash_attention_plain(q, k, v, causal=True, window=c.window)
+        else:
+            o = layers.attention(q, k, v, window=c.window,
+                                 chunked_min_seq=c.attn_chunked_min_seq)
         return layers.weight_matmul(o.reshape(B, S, -1), p["wo"]), (k, v)
 
     def _fuse_ffn(self, p, x, attn_o, ssm_o):
@@ -148,26 +159,31 @@ class HymbaLM:
         h2 = layers.rms_norm(x, p["ln2"], c.norm_eps)
         return x + layers.gated_mlp(h2, p["w_gate"], p["w_up"], p["w_down"], c.activation)
 
-    def _block(self, p, x, sin, cos):
+    def _block(self, p, x, sin, cos, grad=False):
         """One block: (x, (k, v), ssm h_last, conv tail)."""
         h = self._ln1(p, x)
-        attn_o, kv = self._attn(p, h, sin, cos)
-        ssm_o, h_last, conv_tail = self._mamba(p, h)
+        attn_o, kv = self._attn(p, h, sin, cos, grad)
+        ssm_o, h_last, conv_tail = self._mamba(p, h, grad=grad)
         return self._fuse_ffn(p, x, attn_o, ssm_o), kv, h_last, conv_tail
 
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def hidden_states(self, params, batch):
+    def hidden_states(self, params, batch, grad: bool = False):
+        """Final-norm hidden states [B, S, D]; ``grad``: the attention and
+        the scan run their plain versions, which autograd can differentiate
+        (the first-order step's forward)."""
         c = self.cfg
-        x = params["embed"][batch["tokens"]]
+        # a gather; its gradient sums in a fixed order (indexing's
+        # accumulate=True backward on the CPU does not)
+        x = F.embedding(batch["tokens"], params["embed"])
         sin, cos = self._rope(torch.arange(x.shape[1], device=x.device))
         for i in range(c.n_layers):
-            x = self._block(self._layer(params, i), x, sin, cos)[0]
+            x = self._block(self._layer(params, i), x, sin, cos, grad)[0]
         return layers.rms_norm(x, params["final_norm"], c.norm_eps)
 
-    def loss_fn(self, params, batch) -> torch.Tensor:
-        x = self.hidden_states(params, batch)
+    def loss_fn(self, params, batch, grad: bool = False) -> torch.Tensor:
+        x = self.hidden_states(params, batch, grad)
         logits = layers.weight_matmul(x, params["lm_head"])
         return layers.cross_entropy(logits, batch["targets"], batch.get("mask"))
 

@@ -1,10 +1,10 @@
 """Unified LM wrapper (counterpart of ``repro.models.model``): one object
-per architecture exposing ``init``, ``loss_fn`` and the serving paths.
-The ``dense``, ``moe``, ``vlm`` and ``audio`` families
+per architecture exposing ``init``, ``loss_fn``, ``fo_loss_fn`` and the
+serving paths.  The ``dense``, ``moe``, ``vlm`` and ``audio`` families
 (``models.transformer``; a vlm or audio batch may carry prefix ``embeds
-[B, P, D]``, the modality stubs) and the ``hybrid`` family
-(``models.hymba``) are ported; only the transformer families have the
-paged serving paths."""
+[B, P, D]``, the modality stubs), the ``hybrid`` family (``models.hymba``)
+and the ``ssm`` family (``models.xlstm``) are ported; only the transformer
+families have the paged serving paths."""
 
 from __future__ import annotations
 
@@ -16,19 +16,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.hymba import HymbaLM
 from repro_torch.models.spec import init_params
 from repro_torch.models.transformer import TransformerLM, torch_dtype
+from repro_torch.models.xlstm import XLSTMLM
 from repro_torch.utils.device import resolve_device
 
 
 _FAMILIES = {"dense": TransformerLM, "moe": TransformerLM, "vlm": TransformerLM,
-             "audio": TransformerLM, "hybrid": HymbaLM}
+             "audio": TransformerLM, "hybrid": HymbaLM, "ssm": XLSTMLM}
 
 
 class LM:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
         if cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, item "
-                f"12b 'Other model families'); ported: {sorted(_FAMILIES)}"
+                f"unknown model family {cfg.family!r}; expected one of {sorted(_FAMILIES)}"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -55,14 +55,11 @@ class LM:
 
     def fo_loss_fn(self, params: Any, batch: Any) -> torch.Tensor:
         """The same loss with autograd, for the first-order step
-        (``optim.fo``): its attention is the plain version, named at the call
-        site, since the hand-written kernels have no backward (their
-        wrappers raise under autograd).  The transformer families only."""
-        if not isinstance(self.impl, TransformerLM):
-            raise NotImplementedError(
-                f"the first-order loss of family {self.cfg.family!r} is not ported yet "
-                "(ROADMAP.md Queue A item 14, the hybrid family's first-order loss)"
-            )
+        (``optim.fo``), on every family.  The hand-written kernels have no
+        backward (their wrappers raise under autograd), so the forward runs
+        their plain versions, named at the call site: the attention's
+        (``flash_attention_plain``) and the hybrid family's scan
+        (``selective_scan_plain``).  The xLSTM forward runs no kernel."""
         return self.impl.loss_fn(params, batch, grad=True)
 
     # ---- serve ------------------------------------------------------------
@@ -79,7 +76,7 @@ class LM:
     @property
     def supports_paged_decode(self) -> bool:
         """Attention-family models serve through the paged engine; the
-        recurrent (hybrid) family keeps the dense decode path."""
+        recurrent (hybrid and ssm) families keep the dense decode path."""
         return hasattr(self.impl, "decode_step_paged")
 
     def init_paged_cache(self, n_pages: int, page_size: int):

@@ -93,3 +93,18 @@ def _path_hash(path: str) -> int:
 def fold_in_path(key, path: str) -> tuple[int, int]:
     """Derive a per-leaf key from a base key and the leaf's tree path."""
     return jax_random.fold_in(key, _path_hash(path))
+
+
+def _tensor_leaves(tree: Any) -> list:
+    return [x for _, x in flatten_with_path(tree) if hasattr(x, "numel")]
+
+
+def tree_size_bytes(tree: Any) -> int:
+    """Total bytes across the tree's tensor leaves (a QuantLeaf counts its
+    tensor fields), as the reference's ``tree_size_bytes``."""
+    return sum(x.numel() * x.element_size() for x in _tensor_leaves(tree))
+
+
+def tree_num_params(tree: Any) -> int:
+    """Total elements across the tree's tensor leaves."""
+    return sum(x.numel() for x in _tensor_leaves(tree))

@@ -377,9 +377,13 @@ DENSE_LEAVES = [((2, 5120), 2), ((2, 1024), 2), ((2, 128), 2), ((48, 5120), 24),
 # router [L, D, E] of kimi-k2's 384 experts
 MOE_LEAVES = [((2, 16, 96, 200), 24), ((2, 16, 200, 96), 24), ((1, 6, 130, 257), 12),
               ((2, 7168, 384), 24)]
+# xlstm-350m's new leaf shapes: w_if [2048, 8] at r = 8 (n = r = 8, its
+# rank 24 capped by n), the 4-head smoke model's w_if [64, 8], and the
+# batched sLSTM recurrence r_h [4, 256, 1024]
+XLSTM_LEAVES = [((2048, 8), 8), ((64, 8), 8), ((4, 256, 1024), 24)]
 TEZO_CASES = [  # W shape, r
     ((50, 40), 8), ((3, 70, 200), 24), ((12, 130), 12), ((24, 32), 1), ((130, 257), 128),
-] + HYMBA_LEAVES + DENSE_LEAVES + MOE_LEAVES
+] + HYMBA_LEAVES + DENSE_LEAVES + MOE_LEAVES + XLSTM_LEAVES
 
 
 @pytest.mark.parametrize("shape,r", TEZO_CASES)
@@ -686,7 +690,8 @@ def test_noise_draw_where_u1_rounds_to_one(cuda):
     pytest.fail("no draw with u1 = 1 in 32 probes of 16.8 M elements")
 
 
-@pytest.mark.parametrize("shape", [(50, 40), (3, 24, 137), (12, 768), (2, 3200, 16)])
+@pytest.mark.parametrize("shape", [(50, 40), (3, 24, 137), (12, 768), (2, 3200, 16),
+                                   (2048, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_noise_kernels_on_unaligned_leaf(cuda, shape, dtype):
     """A leaf that starts one element into its buffer (not 8-byte aligned)
@@ -1197,3 +1202,71 @@ def test_kernel_wrappers_raise_under_autograd_on_card(cuda, name):
         with torch.no_grad():
             call()
         assert counter.launches == n0 + 1
+
+
+# --------------------------------------------------------------------------
+# the xLSTM family: no kernel in its forward; the chunkwise form on the card
+# --------------------------------------------------------------------------
+
+
+def test_xlstm_chunkwise_on_card_matches_sequential(cuda):
+    """The f32 smoke model on a 2 x 512 batch: the card's default chunk of
+    256 (the reference's "pallas" default) against the sequential form on
+    the card (``mlstm_chunk`` 512: a chunk not shorter than S) and on the
+    CPU, hidden states and carried states within the reference's 1e-3, and
+    explicit chunks of 8 on the card against the CPU's within 1e-5; no
+    kernel launches."""
+    from repro_torch.utils.tree import map_with_path
+
+    cfg = get_smoke_config("xlstm-350m")
+    cpu_params = build_model(cfg, "cpu").init(PRNGKey(0))
+    params = map_with_path(lambda _, w: w.to(cuda), cpu_params)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 128, size=(2, 512))
+                              .astype(np.int32))
+    chunked = build_model(cfg, cuda)
+    assert chunked.impl._mlstm_chunk(tokens.to(cuda)) == 256
+    n0 = sum(f.launches for f in (tflash.flash_attention, tscan.selective_scan))
+    x256, s256 = chunked.impl.hidden_states(params, {"tokens": tokens.to(cuda)})
+    xseq, sseq = build_model(cfg.reduced(mlstm_chunk=512), cuda).impl.hidden_states(
+        params, {"tokens": tokens.to(cuda)})
+    xcpu, scpu = build_model(cfg, "cpu").impl.hidden_states(cpu_params, {"tokens": tokens})
+    assert sum(f.launches for f in (tflash.flash_attention, tscan.selective_scan)) == n0
+    for a, b in ((x256, xseq), (x256, xcpu), (xseq, xcpu)):
+        assert (a.cpu() - b.cpu()).abs().max().item() <= 1e-3
+    for key in scpu:
+        for a, b, c in zip(s256[key], sseq[key], scpu[key]):
+            assert (a.cpu() - c).abs().max().item() <= 1e-3, key
+            assert (b.cpu() - c).abs().max().item() <= 1e-3, key
+    small = cfg.reduced(mlstm_chunk=8)
+    x8 = build_model(small, cuda).impl.hidden_states(params, {"tokens": tokens.to(cuda)})[0]
+    x8c = build_model(small, "cpu").impl.hidden_states(cpu_params, {"tokens": tokens})[0]
+    assert torch.isfinite(x8).all() and (x8.cpu() - x8c).abs().max().item() <= 1e-5
+
+
+def test_xlstm_step_on_card_matches_cpu(cuda):
+    """One TeZO-Adam step of the 4-head smoke model (w_if [64, 8] low-rank
+    at r = 8) in f32 from the same weights: 2 tezo_perturb and 1
+    tezo_adam_update launches per low-rank leaf, the loss within 1e-5
+    relative and params within 1e-5 of the CPU's."""
+    from repro_torch.utils.tree import map_with_path
+
+    cfg = get_smoke_config("xlstm-350m").reduced(n_heads=4, n_kv_heads=4)
+    params = build_model(cfg, "cpu").init(PRNGKey(1))
+    zc = ZOConfig(method="tezo_adam", rank=8, lr=1e-3)
+    batch = batch_at_step(DataConfig(seq_len=32, global_batch=4, vocab_size=128), 0)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        state = init_zo_state(map_with_path(lambda _, w: w.clone().to(dev), params), zc)
+        n0 = (tpert.tezo_perturb.launches, tadam.tezo_adam_update.launches)
+        state, metrics = build_zo_train_step(model.loss_fn, zc)(
+            state, {k: torch.from_numpy(x).to(dev) for k, x in batch.items()})
+        launched = (tpert.tezo_perturb.launches - n0[0], tadam.tezo_adam_update.launches - n0[1])
+        out[str(dev)] = (float(metrics["loss"]), dict(flatten_with_path(state.params)), launched,
+                         state.mstate["factors"])
+    (lc, pc, _, _), (lg, pg, launched, factors) = out["cpu"], out[str(cuda)]
+    assert tuple(factors["['blocks']['l00_m']['w_if']"].u.shape) == (64, 8)
+    assert launched == (2 * len(factors), len(factors))
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for path, w in pg.items():
+        assert (w.cpu() - pc[path]).abs().max().item() <= 1e-5, path

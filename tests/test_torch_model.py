@@ -217,10 +217,10 @@ def test_prefill_paged_and_decode_step_paged_match(model, params, ref_params):
 def test_config_registry():
     assert get_config("opt-125m").d_model == 768
     assert get_smoke_config("opt-125m").n_layers == 2
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("xlstm-350m")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        build_model(get_smoke_config("opt-125m").reduced(family="ssm"), device="cpu")
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        get_config("no-such-arch")
+    with pytest.raises(NotImplementedError, match="unknown model family 'no-such-family'"):
+        build_model(get_smoke_config("opt-125m").reduced(family="no-such-family"), device="cpu")
 
 
 def test_entry_points_default_to_cuda():
