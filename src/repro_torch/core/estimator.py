@@ -74,7 +74,7 @@ class ZOConfig:
     q_probes: int = 1
     seed: int = 0
     restore_mode: str = "inplace"  # inplace | unchained | exact
-    probe_parallel: bool = False  # raises: ROADMAP.md Queue A item 13
+    probe_parallel: bool = False  # the q probes over a mesh's data lanes (core.zo_step)
     adaptive_q: bool = False  # AdaZeta-style q growth by the launcher (core.adaptive)
     q_max: int = 16  # adaptive-q growth cap
     weight_quant: str = "none"  # none | nf4 | lut3 | lut4 (core.quant.QuantLeaf)
@@ -229,7 +229,14 @@ def _out(out, path):
 
 
 def _restore(draws, path, restore_probe):
-    return None if restore_probe is None else draws(path, restore_probe)
+    """One leaf's restore operand for ``update``: None, the draw of one
+    probe, or (``restore_probe`` a tuple) the draws of a whole chain in
+    order — the probe-parallel step restores the 3q-delta trajectory."""
+    if restore_probe is None:
+        return None
+    if isinstance(restore_probe, (list, tuple)):
+        return [draws(path, p) for p in restore_probe]
+    return draws(path, restore_probe)
 
 
 def _dense_leaves(params, covered) -> dict:
@@ -273,6 +280,10 @@ class ZOMethod:
 
     def update(self, params, mstate, noise, kappas, lr, cfg, restore_probe=None,
                restore_scale=0.0):
+        """The optimizer step from the [q] κ vector, the restore deltas
+        first in the same pass: ``restore_probe`` one probe id (the chained
+        step's last restore) or a tuple of them with a tuple of scales (the
+        probe-parallel step's whole trajectory)."""
         raise NotImplementedError
 
     def factors(self, mstate) -> dict:
@@ -282,9 +293,11 @@ class ZOMethod:
     def draws(self, params, mstate, key_t, cfg: ZOConfig, step: int = 0,
               cache: Optional[dict] = None) -> StepNoise:
         """The step's τ for every factor leaf and host z for every leaf that
-        has no factor and does not fit the noise kernels; an eligible leaf
-        needs nothing but its key.  ``cache`` is the run's own dict (the
-        step function keeps one) for what a method reuses across steps."""
+        has no factor and does not fit the noise kernels, for probes 0 ..
+        ``cfg.q_probes`` - 1 (the ensemble's n members are probes 0 .. n-1);
+        an eligible leaf needs nothing but its key.  ``cache`` is the run's
+        own dict (the step function keeps one) for what a method reuses
+        across steps."""
         factors = self.factors(mstate)
         return StepNoise(_dense_leaves(params, factors), key_t, cfg.q_probes, _device(params),
                          tau={p: f.batch + (f.rank,) for p, f in factors.items()},

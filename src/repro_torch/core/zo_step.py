@@ -18,8 +18,25 @@ The step updates the params in place on the device: the kernels write W
 where it lies.  It returns the new state (the same param tensors, the new
 optimizer state, step + 1) and device-side metrics; nothing in it reads a
 value back to the host, so consecutive steps queue on the device without a
-sync.  The probe-parallel schedule is not ported (ROADMAP.md Queue A
-item 13).
+sync.
+
+Probe-parallel schedule (``cfg.probe_parallel``, the chained ``inplace``
+mode, on a ``launch.mesh.HostMesh``: one process per rank).  The D data
+lanes each evaluate a contiguous block of the q probes
+(``distributed.collectives.probe_assignment``).  A rank perturbs the
+original params into one scratch set of buffers: a lane that starts at
+probe 0 opens with the first perturb, a lane that starts at probe s with
+one catch-up chain of 3s + 1 deltas (probes 0 .. s−1's ±ρ triples, then
++ρ of probe s), and its block's bridges and flips follow in place.  Each
+rank writes its probes' rows of a [q, 2] loss matrix (a rank off model
+index 0 writes zeros) and one all-reduce over the ranks completes it: each
+entry has one nonzero writer, so the sum is exact.  κ and the loss sums are
+rebuilt in probe order with the sequential step's ops, and one update pass
+on the original params replays the whole 3q-delta trajectory before the
+update's own delta.  Every delta rounds to the weight dtype as its own pass
+would, so the result is the sequential chained step's bit for bit, on
+``2·ceil(q/D) + 1`` weight passes per rank.  The all-reduce's copy of the
+2q losses to the host is the step's one wait on the device.
 """
 
 from __future__ import annotations
@@ -31,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
-from repro_torch.core.estimator import ZOConfig, get_method
+from repro_torch.core.estimator import ZOConfig, _device, get_method
 from repro_torch.utils import jax_random
 from repro_torch.utils.tree import flatten_with_path
 
@@ -93,29 +110,32 @@ def init_zo_state(params: Any, cfg: ZOConfig, ranks: dict | None = None,
                         base_key=jax_random.key_data(jax_random.fold_in(key, 0x5EED)))
 
 
+def branch_buffers(scratch: dict, params) -> dict:
+    """One scratch buffer per leaf of ``params`` (a QuantLeaf's for its
+    ``nacc``; its ``acc`` is new each pass), made into ``scratch`` at the
+    first call and reused after: the second set of weights that a step
+    perturbs off the originals writes to."""
+    if not scratch:
+        for p, w in flatten_with_path(params, atomic=True):
+            if isinstance(w, quant.QuantLeaf):
+                w = w.nacc
+            scratch[p] = None if w is None else torch.empty_like(w)
+    return scratch
+
+
 def build_zo_train_step(
-    loss_fn: Callable[[Any, Any], torch.Tensor], cfg: ZOConfig
+    loss_fn: Callable[[Any, Any], torch.Tensor], cfg: ZOConfig, *, mesh=None
 ) -> Callable[[ZOTrainState, Any], tuple[ZOTrainState, dict]]:
-    """``loss_fn(params, batch)`` → f32 scalar on the params' device."""
+    """``loss_fn(params, batch)`` → f32 scalar on the params' device.
+    ``mesh`` (a ``launch.mesh.HostMesh``) is what the probe-parallel
+    schedule runs on; the other schedules take none."""
     method = get_method(cfg.method)
     zo_pass_count(cfg.q_probes, cfg.restore_mode)  # fail fast on unknown schedules
     quant.validate_quant_config(cfg)  # ...and incompatible weight_quant combinations
     if cfg.probe_parallel:
-        raise NotImplementedError(
-            "probe_parallel is not ported yet (ROADMAP.md Queue A item 13)"
-        )
+        return _build_probe_parallel_step(loss_fn, cfg, method, mesh)
     scratch: dict = {}  # the exact mode's copies, reused across steps
     cache: dict = {}  # what the method reuses across steps (LOZO's window of U)
-
-    def branch(params):
-        """The exact mode's buffers, one per leaf (a QuantLeaf's for its
-        ``nacc``; its ``acc`` is new each pass)."""
-        if not scratch:
-            for p, w in flatten_with_path(params, atomic=True):
-                if isinstance(w, quant.QuantLeaf):
-                    w = w.nacc
-                scratch[p] = None if w is None else torch.empty_like(w)
-        return scratch
 
     def step_fn(state: ZOTrainState, batch: Any) -> tuple[ZOTrainState, dict]:
         with torch.inference_mode():
@@ -129,7 +149,7 @@ def build_zo_train_step(
             kappas, f_plus_acc, f_minus_acc = [], 0.0, 0.0
             for probe in range(cfg.q_probes):
                 if cfg.restore_mode == "exact":
-                    out = branch(params)
+                    out = branch_buffers(scratch, params)
                     p_plus = method.perturb(params, mstate, noise, probe, +rho, cfg, out=out)
                     f_plus = loss_fn(p_plus, batch)
                     p_minus = method.perturb(params, mstate, noise, probe, -rho, cfg, out=out)
@@ -168,6 +188,88 @@ def build_zo_train_step(
             "kappa_var": torch.var(kappa_vec, unbiased=False),
             "lr": lr,
             "zo_passes": zo_pass_count(cfg.q_probes, cfg.restore_mode),
+        }
+        new_state = ZOTrainState(params=params, mstate=mstate, step=state.step + 1,
+                                 base_key=state.base_key)
+        return new_state, metrics
+
+    return step_fn
+
+
+def _build_probe_parallel_step(loss_fn, cfg: ZOConfig, method, mesh):
+    """The probe-parallel schedule on ``mesh`` (see the module docstring):
+    this rank runs its data lane's block of probes."""
+    if cfg.restore_mode != "inplace":
+        raise ValueError(
+            "probe_parallel requires restore_mode='inplace' (the chained "
+            f"schedule); got restore_mode={cfg.restore_mode!r}"
+        )
+    if mesh is None or "data" not in mesh.axis_names:
+        raise ValueError(
+            "probe_parallel requires a mesh with a 'data' axis (got "
+            f"{None if mesh is None else mesh.axis_names})"
+        )
+    from repro_torch.distributed.collectives import probe_assignment
+
+    q, rho = cfg.q_probes, cfg.rho
+    starts, counts = probe_assignment(q, mesh.data)
+    start, count = starts[mesh.data_index], counts[mesh.data_index]
+    writes = mesh.model_index == 0  # the other ranks of a lane add zeros
+    passes = zo_pass_count(q, cfg.restore_mode, probe_lanes=mesh.data)
+    # the lane's opening chain: probes 0 .. start-1's ±ρ triples, then +ρ of
+    # probe `start` (the first perturb when start is 0)
+    open_probes = tuple(i for i in range(start) for _ in range(3)) + (start,)
+    open_scales = tuple(s for _ in range(start) for s in (+rho, -2.0 * rho, +rho)) + (+rho,)
+    # the whole trajectory, which the update replays on the original params
+    restore_probes = tuple(i for i in range(q) for _ in range(3))
+    restore_scales = tuple(s for _ in range(q) for s in (+rho, -2.0 * rho, +rho))
+    scratch: dict = {}
+    cache: dict = {}
+
+    def step_fn(state: ZOTrainState, batch: Any) -> tuple[ZOTrainState, dict]:
+        with torch.inference_mode():
+            key_t = jax_random.fold_in(state.base_key, state.step)
+            mstate = method.begin_step(state.mstate, key_t, state.step, cfg)
+            noise = method.draws(state.params, mstate, key_t, cfg, state.step, cache)
+            lr = float(cfg.schedule(state.step))
+            params = state.params
+            f_mat = None
+            if count:
+                p = method.perturb_chain(params, mstate, noise, open_probes, open_scales, cfg,
+                                         out=branch_buffers(scratch, params))
+                rows = []
+                for probe in range(start, start + count):
+                    if probe > start:
+                        p = method.perturb_pair(p, mstate, noise, probe - 1, +rho, probe,
+                                                +rho, cfg)
+                    f_plus = loss_fn(p, batch)
+                    p = method.perturb(p, mstate, noise, probe, -2.0 * rho, cfg)
+                    rows.append(torch.stack([f_plus, loss_fn(p, batch)]).float())
+                block = torch.stack(rows)
+                f_mat = torch.zeros((q, 2), dtype=torch.float32, device=block.device)
+                if writes:
+                    f_mat[start:start + count] = block
+            f_mat = mesh.all_reduce_losses(f_mat, q, _device(params))
+
+            # κ and the loss sums in probe order, the sequential step's ops
+            kappas, f_plus_acc, f_minus_acc = [], 0.0, 0.0
+            for i in range(q):
+                f_plus, f_minus = f_mat[i, 0], f_mat[i, 1]
+                kappas.append((f_plus - f_minus) / (2.0 * rho))
+                f_plus_acc = f_plus_acc + f_plus
+                f_minus_acc = f_minus_acc + f_minus
+            kappa_vec = torch.stack(kappas).float()
+            params, mstate = method.update(params, mstate, noise, kappa_vec, lr, cfg,
+                                           restore_probe=restore_probes,
+                                           restore_scale=restore_scales)
+
+        metrics = {
+            "loss": (f_plus_acc + f_minus_acc) / (2.0 * float(q)),
+            "kappa_abs": torch.mean(torch.abs(kappa_vec)),
+            "kappa_var": torch.var(kappa_vec, unbiased=False),
+            "lr": lr,
+            # the busiest lane's weight passes, not the sequential 2q + 1
+            "zo_passes": passes,
         }
         new_state = ZOTrainState(params=params, mstate=mstate, step=state.step + 1,
                                  base_key=state.base_key)

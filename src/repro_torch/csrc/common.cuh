@@ -112,7 +112,18 @@ __device__ __forceinline__ float warp_sum(float x) {
 // A chain of up to kMaxChain rank-r deltas applied in order in one pass:
 // W <- round_W(decay[s] * W + scale[s] * Z_s), Z_s = (u * diag(tau_s)) v^T.
 // Passed to the kernels by value; the host fills it from Python floats.
-constexpr int kMaxChain = 8;
+// The probe-parallel step's longest chains set the limit: its update
+// replays the whole 3q-delta trajectory before the update's own delta
+// (3 * 16 + 1 = 49 at the adaptive-q cap of 16 probes), and a lane that
+// opens at probe s catches up with 3s + 1 deltas.  Nothing on the card is
+// sized by the chain's length: the kernels loop over k at run time, stage
+// each delta's factors (and tau_r's rows) one chunk at a time, and the
+// chain stays in the kernel's parameter block (516 bytes here, 512 more
+// for LOZO's FactorList, of the 4 KB the block holds): every kernel takes
+// it as a __grid_constant__ parameter and indexes it where it lies, where
+// a by-value parameter indexed at run time is copied to each thread's
+// stack first.
+constexpr int kMaxChain = 64;
 struct DeltaChain {
   float scale[kMaxChain];
   float decay[kMaxChain];

@@ -48,7 +48,8 @@ using noise::kThreads;
 
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) noise_perturb_kernel(
-    const T* w, T* out, uint32_t k0, uint32_t k1, noise::NoiseChain ch, noise::LeadDims lead,
+    const T* w, T* out, uint32_t k0, uint32_t k1, __grid_constant__ const noise::NoiseChain ch,
+    noise::LeadDims lead,
     int m, int n) {
   __shared__ uint32_t key[2];
   if (threadIdx.x == 0) {  // a stacked leaf's slice key: ~150 instructions, once a block

@@ -60,7 +60,8 @@ enum Variant { kSgd = 0, kMomentum = 1, kAdam = 2 };
 template <typename T, int kVariant>
 __global__ void __launch_bounds__(kThreads) noise_update_kernel(
     T* w, float* mbuf, float* vbuf, const float* __restrict__ kappas, int q, uint32_t k0,
-    uint32_t k1, noise::NoiseChain restore, NoiseHyp hyp, noise::LeadDims lead, int m, int n) {
+    uint32_t k1, __grid_constant__ const noise::NoiseChain restore, NoiseHyp hyp,
+    noise::LeadDims lead, int m, int n) {
   __shared__ uint32_t key[2];
   __shared__ float kap[noise::kMaxProbes];
   if (threadIdx.x == 0) {

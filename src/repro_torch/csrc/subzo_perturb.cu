@@ -116,7 +116,7 @@ struct SubzoSrc {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3) subzo_perturb_kernel(
     const T* w, T* out, const float* __restrict__ us, const float* __restrict__ v,
-    DeltaChain chain, int m, int n, int r, bool vec, bool vec_f) {
+    __grid_constant__ const DeltaChain chain, int m, int n, int r, bool vec, bool vec_f) {
   __shared__ tezo::RankSmem sm;
   extern __shared__ __align__(16) unsigned char dyn[];
   T* ws = reinterpret_cast<T*>(dyn);  // [kBM][kBN]

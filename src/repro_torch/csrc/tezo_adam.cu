@@ -126,7 +126,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) tezo_adam_kernel(
     const T* w, T* out, const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ tau_m, const float* __restrict__ tau_v,
-    const float* __restrict__ tau_r, DeltaChain restore, float neg_lr, float eps,
+    const float* __restrict__ tau_r, __grid_constant__ const DeltaChain restore, float neg_lr,
+    float eps,
     float decay, int m, int n, int r, bool vec, bool vec_f) {
   extern __shared__ __align__(16) unsigned char dyn[];
   MomentSmem& sm = *reinterpret_cast<MomentSmem*>(dyn);

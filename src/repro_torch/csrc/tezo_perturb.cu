@@ -71,11 +71,11 @@ struct TezoSrc {
 // LOZO's: u as it is against a fresh V per delta (restaged alone).
 struct LozoSrc {
   const float* u;
-  FactorList vs;
+  const FactorList* vs;  // the kernel's parameter, read where it lies
   size_t off;  // the batch index's offset into each V
   __device__ tezo::Parts later() const { return {false, true, false}; }
   __device__ const float* a(int) const { return u; }
-  __device__ const float* b(int s) const { return vs.p[s] + off; }
+  __device__ const float* b(int s) const { return vs->p[s] + off; }
   __device__ const float* tau_of(int) const { return nullptr; }
 };
 
@@ -83,7 +83,8 @@ struct LozoSrc {
 template <typename T, bool kLozo>
 __global__ void __launch_bounds__(kThreads, 3) tezo_perturb_kernel(
     const T* w, T* out, const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ tau, FactorList vs, DeltaChain chain, int m, int n, int r,
+    const float* __restrict__ tau, __grid_constant__ const FactorList vs,
+    __grid_constant__ const DeltaChain chain, int m, int n, int r,
     bool vec, bool vec_f) {
   __shared__ tezo::RankSmem sm;
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -96,7 +97,7 @@ __global__ void __launch_bounds__(kThreads, 3) tezo_perturb_kernel(
   const float* ub = u + b * m * r;
   if constexpr (kLozo)
     tezo::chain_pass<T, false>(ws, raw, sm, w + b * mn, out + b * mn,
-                               LozoSrc{ub, vs, b * n * r}, chain, t, vec, vec_f);
+                               LozoSrc{ub, &vs, b * n * r}, chain, t, vec, vec_f);
   else
     tezo::chain_pass<T, true>(ws, raw, sm, w + b * mn, out + b * mn,
                               TezoSrc{ub, v + b * n * r, tau + b * chain.k * r, r}, chain, t,

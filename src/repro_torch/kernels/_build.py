@@ -34,8 +34,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
 _L = ctypes.c_longlong
-MAX_CHAIN = 8  # csrc/common.cuh kMaxChain
+MAX_CHAIN = 64  # csrc/common.cuh kMaxChain
 MAX_LEAD = 4  # csrc/zo_noise.cuh kMaxLead
+
+
+def check_chain(k: int) -> None:
+    """Refuse a chain the kernels' structs cannot hold (the wrappers check
+    on either device, so the CPU refuses what the card would).  A longer
+    chain is never split over several launches: that would change the
+    weight passes a step counts."""
+    if k > MAX_CHAIN:
+        raise ValueError(f"a chain holds at most {MAX_CHAIN} deltas; got {k}")
 
 
 class DeltaChain(ctypes.Structure):
@@ -46,9 +55,9 @@ class DeltaChain(ctypes.Structure):
 
     @classmethod
     def of(cls, scales, decays) -> "DeltaChain":
-        if len(scales) != len(decays) or len(scales) > MAX_CHAIN:
-            raise ValueError(f"a chain holds at most {MAX_CHAIN} deltas; got "
-                             f"{len(scales)} scales and {len(decays)} decays")
+        if len(scales) != len(decays):
+            raise ValueError(f"{len(scales)} scales for {len(decays)} decays")
+        check_chain(len(scales))
         ch = cls()
         ch.k = len(scales)
         for i, (s, d) in enumerate(zip(scales, decays)):
@@ -64,8 +73,7 @@ class FactorList(ctypes.Structure):
 
     @classmethod
     def of(cls, tensors) -> "FactorList":
-        if len(tensors) > MAX_CHAIN:
-            raise ValueError(f"a chain holds at most {MAX_CHAIN} deltas; got {len(tensors)}")
+        check_chain(len(tensors))
         fl = cls()
         for i, t in enumerate(tensors):
             fl.p[i] = t.data_ptr()
@@ -79,8 +87,7 @@ class NoiseChain(ctypes.Structure):
 
     @classmethod
     def of(cls, chain) -> "NoiseChain":
-        if len(chain) > MAX_CHAIN:
-            raise ValueError(f"a chain holds at most {MAX_CHAIN} deltas; got {len(chain)}")
+        check_chain(len(chain))
         ch = cls()
         ch.k = len(chain)
         for i, (p, s) in enumerate(chain):

@@ -56,6 +56,7 @@ def subzo_perturb(w, u, v, sigmas, scales, decay=None, out=None):
     """Apply the delta chain to ``w`` (in place, or into ``out``) and return
     the result.  ``sigmas`` is ``[..., k, r, r]`` f32 with
     ``len(scales) == k``."""
+    _build.check_chain(len(scales))
     if w.device.type == "cpu":
         return subzo_perturb_plain(w, u, v, sigmas, scales, decay=decay, out=out)
     if w.device.type != "cuda":

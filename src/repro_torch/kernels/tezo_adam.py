@@ -51,6 +51,7 @@ def tezo_adam_update(w, u, v, tau_m, tau_v, lr, eps, decay=None, tau_r=None,
                      restore_scale=(), out=None):
     """The Adam pass over one leaf (in place, or into ``out``); returns it."""
     restore_scale = tuple(restore_scale) if tau_r is not None else ()
+    _build.check_chain(len(restore_scale))
     if w.device.type == "cpu":
         return tezo_adam_update_plain(w, u, v, tau_m, tau_v, lr, eps, decay=decay,
                                       tau_r=tau_r, restore_scale=restore_scale, out=out)

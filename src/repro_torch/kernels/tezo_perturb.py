@@ -100,6 +100,7 @@ def _check_out(w, out):
 def tezo_perturb(w, u, v, taus, scales, decay=None, out=None):
     """Apply the delta chain to ``w`` (in place, or into ``out``) and return
     the result.  ``taus`` is ``[..., k, r]`` f32 with ``len(scales) == k``."""
+    _build.check_chain(len(scales))
     if w.device.type == "cpu":
         return tezo_perturb_plain(w, u, v, taus, scales, decay=decay, out=out)
     if w.device.type != "cuda":
@@ -142,6 +143,7 @@ def lozo_chain_k(w, u, vs, scales, decay=None, out=None):
     place, or into ``out``): ``u [..., m, r]`` the window's shared factor,
     ``vs`` k fresh ``[..., n, r]`` factors, f32.  On the card, one launch of
     the tezo_perturb kernel (counted as such) in its LOZO mode."""
+    _build.check_chain(len(scales))
     if w.device.type == "cpu":
         return lozo_chain_plain(w, u, vs, scales, decay=decay, out=out)
     if w.device.type != "cuda":

@@ -20,7 +20,7 @@ IEEE-rounded f32 op, the plain version, the CUDA kernels
 
 Kernels (replacing ``repro/kernels/zo_noise.py::noise_perturb`` and
 ``::noise_update``): :func:`noise_perturb` is a chain of up to
-``MAX_CHAIN`` deltas ``W ← round_W(W + s_p·z_p)`` (a perturb, the flip,
+``_build.MAX_CHAIN`` deltas ``W ← round_W(W + s_p·z_p)`` (a perturb, the flip,
 the bridge), :func:`noise_update` the optional restore chain then the
 probe mean ``g = (Σ_p κ_p·z_p)·f32(1/q)`` and the sgd, momentum or adam
 rule with the decoupled decay folded in; both write W in place (the
@@ -267,6 +267,7 @@ def noise_perturb(w, seed, probes, scales, out=None):
     """Apply ``scales[i]·z_{probes[i]}`` in chain order to ``w`` (in place,
     or into ``out``) and return the result.  ``seed`` is the leaf key (two
     ints); ``probes`` and ``scales`` are host values."""
+    _build.check_chain(len(scales))
     if w.device.type == "cpu":
         return noise_perturb_plain(w, seed, probes, scales, out=out)
     if w.device.type != "cuda":
@@ -303,6 +304,7 @@ def noise_update(w, seed, kappas, variant, lr, beta1=0.0, beta2=0.0, eps=0.0, de
     q = kappas.shape[0]
     if kappas.dim() != 1 or not 1 <= q < MAX_PROBES:
         raise ValueError(f"kappas must be a [q] vector with 1 <= q < {MAX_PROBES}")
+    _build.check_chain(len(restore_scales))
     if w.device.type == "cpu":
         return noise_update_plain(w, seed, kappas, variant, lr, beta1, beta2, eps, decay,
                                   m_buf, v_buf, restore_probes, restore_scales)

@@ -17,6 +17,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch xlstm-350m --method tezo_adam --steps 3        # xLSTM, no kernel in the forward
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --mesh host:2,1 --probe-parallel --q-probes 4         # 2 ranks, 2 probes each
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --ensemble 4 --straggler-prob 0.25                    # distinct-seed ensemble
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
 Build the model (``--layers N`` cuts the registered config's depth) and
@@ -44,10 +48,21 @@ the first runs under ``torch.cuda.set_sync_debug_mode("error")``: a step
 that waited on the device would raise.  ``--adaptive-q`` grows q at a log
 boundary (``core.adaptive``), outside that guard, and rebuilds the step.
 Prints the reference's JSON result (``final_eval_loss``, the final
-``q_probes`` and the rest) without the history.
+``q_probes``, ``probe_lanes`` and the rest) without the history.
 
-Options whose modules are not ported raise and name their ROADMAP.md item:
-``--mesh``, ``--probe-parallel`` and ``--ensemble``.
+``--mesh host:D,M --probe-parallel`` runs the probe-parallel schedule
+(``core.zo_step``) on D·M ranks of one machine: ``main`` starts them
+(``launch.mesh.host_ranks``: this process is rank 0 and spawns the others,
+unless a launcher such as torchrun already started it), each rank on the
+same device (the one card, or the CPU with ``--device cpu``), reading the
+same batches; rank 0 alone prints, writes checkpoints and the log file.
+It composes with ``--adaptive-q`` (the step is rebuilt at a log boundary,
+on every rank alike: they all see the same κ).  ``--ensemble N`` runs the
+distinct-seed ensemble (``distributed.collectives``) on one device, with
+``--straggler-prob p`` dropping members by ``distributed.fault.
+StragglerSim(N, p, seed + 99)``.  ``--mesh`` without ``--probe-parallel``
+(sharded parameters) and ``--ensemble`` with ``--mesh`` raise and name
+their ROADMAP.md item, 13b.
 """
 
 from __future__ import annotations
@@ -55,6 +70,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -70,6 +86,9 @@ from repro_torch.core.estimator import ZOConfig, get_method
 from repro_torch.core.rank import select_ranks
 from repro_torch.core.zo_step import build_zo_train_step, init_zo_state, zo_pass_count
 from repro_torch.data import DataConfig, Prefetcher, batch_at_step
+from repro_torch.distributed import StragglerSim, build_ensemble_zo_train_step
+from repro_torch.kernels import _build
+from repro_torch.launch.mesh import HostMesh, host_ranks, make_host_mesh, parse_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, build_fo_train_step, init_fo_state
 from repro_torch.utils.jax_random import PRNGKey
@@ -79,13 +98,22 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue A item {item})")
 
 
-def _check_ported(*, mesh, probe_parallel, ensemble, straggler_prob, method) -> None:
-    if mesh is not None:
-        raise _not_ported("--mesh", "13")
-    if probe_parallel:
-        raise _not_ported("--probe-parallel", "13")
-    if ensemble > 1 or straggler_prob > 0:
-        raise _not_ported("--ensemble / --straggler-prob", "13")
+def _check_options(*, mesh, probe_parallel, ensemble, adaptive_q, method) -> None:
+    """Refuse what does not compose, the reference's refusals first."""
+    if mesh is not None and not probe_parallel:
+        raise _not_ported("--mesh without --probe-parallel (sharded parameters)", "13b")
+    if ensemble > 1 and mesh is not None:
+        raise _not_ported("--ensemble with --mesh", "13b")
+    if probe_parallel and mesh is None:
+        raise ValueError(
+            "--probe-parallel requires --mesh with a data axis (the q probes "
+            "shard over the mesh's data-axis replicas)"
+        )
+    if ensemble > 1:
+        if probe_parallel:
+            raise ValueError("--probe-parallel does not compose with --ensemble")
+        if adaptive_q:
+            raise ValueError("--adaptive-q does not compose with --ensemble")
     get_method(method)  # KeyError for an unknown method
 
 
@@ -104,7 +132,10 @@ def to_device(host_batch: dict, device: torch.device) -> dict:
 @contextmanager
 def no_host_sync(device: torch.device, enabled: bool):
     """Raise on any call that waits for the card (the counterpart of the
-    reference's ``jax.transfer_guard_device_to_host("disallow")``)."""
+    reference's ``jax.transfer_guard_device_to_host("disallow")``).  One
+    wait is allowed, on the probe-parallel path only: its step copies the
+    2q losses to the host for the all-reduce over the ranks, and lifts the
+    guard for that copy alone (``HostMesh.all_reduce_losses``)."""
     if not (enabled and device.type == "cuda"):
         yield
         return
@@ -137,7 +168,7 @@ def train(
     ckpt_every: int = 100,
     eval_every: int = 50,
     log_every: int = 10,
-    mesh=None,
+    mesh: HostMesh | str | None = None,
     ensemble: int = 0,
     straggler_prob: float = 0.0,
     pretrain_steps: int = 0,
@@ -157,12 +188,22 @@ def train(
     depth-cut model, say).  ``init_params`` (the model's params on its
     device) replace the seed's draw: a caller that already holds them (a
     serving engine's, say) saves the draw, and the ZO steps write them in
-    place."""
-    _check_ported(mesh=mesh, probe_parallel=probe_parallel, ensemble=ensemble,
-                  straggler_prob=straggler_prob, method=method)
+    place.  ``mesh`` is this rank's ``HostMesh`` or ``"host:D,M"`` (one
+    rank: :func:`main` starts several)."""
+    _check_options(mesh=mesh, probe_parallel=probe_parallel, ensemble=ensemble,
+                   adaptive_q=adaptive_q, method=method)
+    if isinstance(mesh, str):
+        mesh = make_host_mesh(*parse_mesh(mesh))
+    main_rank = mesh is None or mesh.is_main
+    verbose = verbose and main_rank
+    probe_lanes = mesh.data if probe_parallel else None
     cfg = model_cfg or (get_smoke_config(arch) if smoke else get_config(arch))
     model = build_model(cfg, device)
     dev = model.device
+    if mesh is not None and mesh.world > 1 and dev.type == "cuda":
+        if main_rank:  # one build for the ranks that share the card
+            _build.load()
+        mesh.barrier()
     data = data_cfg or DataConfig(
         seq_len=seq_len, global_batch=global_batch,
         vocab_size=min(cfg.vocab_size, 512), seed=seed,
@@ -203,14 +244,21 @@ def train(
             print(f"[train] {json.dumps(sel)}", flush=True)
     state = init_zo_state(params, zo_cfg, ranks, masks)
     del params
-    step_fn = build_zo_train_step(model.loss_fn, zo_cfg)
+    if ensemble > 1:
+        sim = StragglerSim(ensemble, straggler_prob, seed=seed + 99)
+        step_fn = build_ensemble_zo_train_step(
+            model.loss_fn, zo_cfg, ensemble,
+            straggler_mask_fn=sim.mask_fn() if straggler_prob > 0 else None)
+    else:
+        step_fn = build_zo_train_step(model.loss_fn, zo_cfg, mesh=mesh)
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if ckpt and ckpt.latest_step() is not None:
         state, extra = ckpt.restore(state)
         start_step = int(extra.get("step", state.step))
-        print(f"[train] restored step {start_step} from {ckpt.dir}")
+        if main_rank:
+            print(f"[train] restored step {start_step} from {ckpt.dir}")
 
     eval_batch = to_device(batch_at_step(data, 999_999_999), dev)
     controller = AdaptiveQ(q=zo_cfg.q_probes, q_max=zo_cfg.q_max) if adaptive_q else None
@@ -248,14 +296,14 @@ def train(
                     new_q = controller.observe(float(metrics["kappa_var"]), rec["kappa_abs"])
                     if new_q is not None:  # the step is built for one q: rebuild it
                         zo_cfg = dataclasses.replace(zo_cfg, q_probes=new_q)
-                        step_fn = build_zo_train_step(model.loss_fn, zo_cfg)
+                        step_fn = build_zo_train_step(model.loss_fn, zo_cfg, mesh=mesh)
                         rec["q_probes"] = new_q
                 if (step_idx + 1) % eval_every == 0:
                     rec["eval_loss"] = float(model.loss_fn(state.params, eval_batch))
                 history.append(rec)
                 if verbose:
                     print(f"[train] {json.dumps(rec)}", flush=True)
-            if ckpt and (step_idx + 1) % ckpt_every == 0:
+            if ckpt and main_rank and (step_idx + 1) % ckpt_every == 0:
                 ckpt.save_async(step_idx + 1, state, extra={"step": step_idx + 1})
     finally:
         prefetch.close()
@@ -275,8 +323,11 @@ def train(
         "restore_mode": restore_mode,
         "weight_quant": weight_quant,
         "probe_parallel": probe_parallel,
-        "probe_lanes": None,
-        "zo_passes": zo_pass_count(zo_cfg.q_probes, restore_mode),
+        "probe_lanes": probe_lanes,
+        # per step: the busiest lane's with probe-parallel; the ensemble's
+        # 2n + 1 (n members off the original params, then the update)
+        "zo_passes": (zo_pass_count(ensemble, "exact") if ensemble > 1 else
+                      zo_pass_count(zo_cfg.q_probes, restore_mode, probe_lanes=probe_lanes)),
         "final_eval_loss": final_eval,
         "history": history,
         "wall_s": round(time.time() - t_start, 1),
@@ -285,7 +336,7 @@ def train(
         "steady_steps": steady_steps,
         "steady_step_ms": 1e3 * steady_s / steady_steps if steady_steps else None,
     }
-    if log_file:
+    if log_file and main_rank:
         Path(log_file).parent.mkdir(parents=True, exist_ok=True)
         Path(log_file).write_text(json.dumps(result, indent=1))
     if return_state:
@@ -332,16 +383,30 @@ def main(argv=None) -> None:
     ap.add_argument("--ensemble", type=int, default=0)
     ap.add_argument("--straggler-prob", type=float, default=0.0)
     ap.add_argument("--log-file", default=None)
-    ap.add_argument("--mesh", default=None, metavar="host:D,M")
+    ap.add_argument("--mesh", default=None, metavar="host:D,M",
+                    help="run D·M ranks of this command on this machine (rank 0 spawns the "
+                    "others unless a launcher started them), the q probes over the D data "
+                    "lanes; needs --probe-parallel")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; the hand-written kernels) or cpu (their "
                     "plain PyTorch versions)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
     kwargs = {k.replace("-", "_"): v for k, v in vars(args).items()}
     if kwargs.pop("layers"):
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
         kwargs["model_cfg"] = cfg.reduced(n_layers=args.layers)
-    result = train(**kwargs)
+    if args.mesh is None:
+        result = train(**kwargs)
+    else:
+        _check_options(mesh=args.mesh, probe_parallel=args.probe_parallel,
+                       ensemble=args.ensemble, adaptive_q=args.adaptive_q, method=args.method)
+        d, m = parse_mesh(args.mesh)
+        with host_ranks(d * m, [sys.executable, "-m", "repro_torch.launch.train", *argv]) as rank:
+            kwargs["mesh"] = make_host_mesh(d, m)
+            result = train(**kwargs)
+        if rank != 0:
+            return
     print(json.dumps({k: v for k, v in result.items() if k != "history"}, indent=1))
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 
@@ -24,3 +26,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; expected cuda or cpu")
     return dev
+
+
+@contextmanager
+def host_sync_allowed():
+    """Lift ``torch.cuda.set_sync_debug_mode`` for the body and restore it
+    after: for a wait on the card that a step makes on purpose (the
+    probe-parallel step's copy of its losses to the host)."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)

@@ -281,6 +281,13 @@ def uniform(key, shape, dtype=torch.float32, minval: float = 0.0, maxval: float 
     return torch.maximum(out, lo.to(device))
 
 
+def bernoulli(key, p: float, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p`` (x64
+    off, its default ``mode="low"``): ``uniform(key, shape) < f32(p)``, a
+    bool tensor."""
+    return uniform(key, shape, torch.float32, device=device) < float(np.float32(p))
+
+
 def gumbel(key, shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
     """``jax.random.gumbel(key, shape, dtype)`` in its default ``mode="low"``:
     ``-log(-log(uniform(key, minval=tiny, maxval=1)))`` with XLA:CPU's f32

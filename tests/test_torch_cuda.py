@@ -20,7 +20,12 @@ step's rsqrt (the kernel's correctly rounded one, the plain version's
 formed in f64 and rounded once) may put W an ulp apart, so W after an
 Adam update is held to 1 f32 / bf16 ulp."""
 
+import json
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1270,3 +1275,114 @@ def test_xlstm_step_on_card_matches_cpu(cuda):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for path, w in pg.items():
         assert (w.cpu() - pc[path]).abs().max().item() <= 1e-5, path
+
+
+# the probe-parallel step's chains (ROADMAP item 13a): the q = 3 and q = 4
+# trajectories (9 and 12 deltas) and the limit, on a [768, 3072] leaf and a
+# stacked one
+LONG_CHAINS = (9, 12, 64)
+LONG_CHAIN_SHAPES = [(768, 3072), (3, 130, 257)]
+
+
+@pytest.mark.parametrize("k", LONG_CHAINS)
+@pytest.mark.parametrize("shape", LONG_CHAIN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_chains_are_single_passes(cuda, k, shape, dtype):
+    """Every chain-taking kernel at k deltas (+ρ, −2ρ, +ρ per probe):
+    bitwise its deltas as single launches, each of those within the file's
+    bars of the plain delta on the same input weight (over 64 deltas the
+    per-delta roundings that put a bf16 weight an ulp apart add up, so
+    the whole chain is not held to the whole plain chain); tezo_adam_update's
+    and noise_update's restore chains bitwise the perturb chain's launch,
+    then the update's, the update close to the plain one."""
+    from repro_torch.kernels import _build
+
+    assert k <= _build.MAX_CHAIN
+    *batch, m, n = shape
+    r = 24
+    w = _randn(shape, cuda, 1, 0.05).to(dtype)
+    u, v = _randn((*batch, m, r), cuda, 2, 1.0), _randn((*batch, n, r), cuda, 3, 1.0)
+    taus = _randn((*batch, k, r), cuda, 4, 1.0)
+    vs = [_randn((*batch, n, r), cuda, 10 + j, 1.0) for j in range(k)]
+    uo, vo = _orthonormal((*batch, m, r), cuda, 5), _orthonormal((*batch, n, r), cuda, 6)
+    sig = _randn((*batch, k, r, r), cuda, 7, 1.0)
+    tm, tv = _randn((*batch, r), cuda, 8, 0.3), _randn((*batch, r), cuda, 9, 0.3) ** 2
+    sc = [(1e-3, -2e-3, 1e-3)[j % 3] for j in range(k)]
+    ss = [x * math.sqrt(m * n / r) for x in sc]
+    probes = [j // 3 for j in range(k)]
+    seed = tnoise.leaf_seed(PRNGKey(3), "['blocks']['w1']")
+
+    def last(j):
+        return 0.99 if j == k - 1 else None
+
+    def close(got, want, w_in):
+        if dtype == torch.float32:
+            return (got - want).abs().max().item() <= 1e-5
+        return _within_bf16_ulp(got, want, w_in)
+
+    def check(chain, one, plain_one, exact=False):
+        got, cur = chain(), w.clone()
+        for j in range(k):
+            nxt = one(cur.clone(), j)
+            want = plain_one(cur.clone(), j)
+            assert (torch.equal(nxt, want) if exact else close(nxt, want, cur)), j
+            cur = nxt
+        assert torch.equal(got, cur)
+        return got
+
+    check(lambda: tpert.tezo_perturb(w.clone(), u, v, taus, sc, decay=0.99),
+          lambda x, j: tpert.tezo_perturb(x, u, v, taus[..., j:j + 1, :].contiguous(), [sc[j]],
+                                          decay=last(j)),
+          lambda x, j: tpert.tezo_perturb_plain(x, u, v, taus[..., j:j + 1, :], [sc[j]],
+                                                decay=last(j)))
+    check(lambda: tpert.lozo_chain_k(w.clone(), u, vs, sc, decay=0.99),
+          lambda x, j: tpert.lozo_chain_k(x, u, [vs[j]], [sc[j]], decay=last(j)),
+          lambda x, j: tpert.lozo_chain_plain(x, u, [vs[j]], [sc[j]], decay=last(j)))
+    check(lambda: tsub.subzo_perturb(w.clone(), uo, vo, sig, ss, decay=0.99),
+          lambda x, j: tsub.subzo_perturb(x, uo, vo, sig[..., j:j + 1, :, :].contiguous(),
+                                          [ss[j]], decay=last(j)),
+          lambda x, j: tsub.subzo_perturb_plain(x, uo, vo, sig[..., j:j + 1, :, :], [ss[j]],
+                                                decay=last(j)))
+    got = tadam.tezo_adam_update(w.clone(), u, v, tm, tv, 1e-3, 1e-5, tau_r=taus,
+                                 restore_scale=sc)
+    rest = tpert.tezo_perturb(w.clone(), u, v, taus, sc)
+    assert torch.equal(got, tadam.tezo_adam_update(rest.clone(), u, v, tm, tv, 1e-3, 1e-5))
+    assert close(got, tadam.tezo_adam_update_plain(rest.clone(), u, v, tm, tv, 1e-3, 1e-5),
+                 rest)
+    # the noise kernels draw the plain version's bits: each delta is exact
+    rest = check(lambda: tnoise.noise_perturb(w.clone(), seed, probes, sc),
+                 lambda x, j: tnoise.noise_perturb(x, seed, [probes[j]], [sc[j]]),
+                 lambda x, j: tnoise.noise_perturb_plain(x, seed, [probes[j]], [sc[j]]),
+                 exact=True)
+    kap = _randn((4,), cuda, 11, 1.0)
+    m0, v0 = _randn(shape, cuda, 12, 0.01), _randn(shape, cuda, 13, 0.1) ** 2
+    fused = tnoise.noise_update(w.clone(), seed, kap, "adam", 1e-3, 0.9, 0.99, 1e-5, decay=0.99,
+                                m_buf=m0.clone(), v_buf=v0.clone(), restore_probes=probes,
+                                restore_scales=sc)
+    seq = tnoise.noise_update(rest.clone(), seed, kap, "adam", 1e-3, 0.9, 0.99, 1e-5, decay=0.99,
+                              m_buf=m0.clone(), v_buf=v0.clone())
+    assert all(torch.equal(a, b) for a, b in zip(fused, seq))
+    plain = tnoise.noise_update_plain(rest.clone(), seed, kap, "adam", 1e-3, 0.9, 0.99, 1e-5,
+                                      decay=0.99, m_buf=m0.clone(), v_buf=v0.clone())
+    assert _ulp_close(fused[0], plain[0], rest)
+
+
+def test_probe_parallel_on_card_is_the_sequential_step(cuda, tmp_path):
+    """Two ranks on the card (opt-125m-smoke, bf16, over gloo): TeZO-Adam
+    and MeZO-Adam at q = 3 and LOZO at q = 4, two steps each, bitwise the
+    sequential chained step on every rank (tests/_torch_dist_rank.py)."""
+    from repro_torch.kernels import _build
+
+    _build.load()  # built once, before the ranks load it
+    repo = Path(__file__).resolve().parents[1]
+    out = tmp_path / "pp.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    proc = subprocess.run([sys.executable, str(repo / "tests" / "_torch_dist_rank.py"), str(out),
+                           "--device", "cuda", "--cases", "card"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    assert len(recs) == 3
+    for rec in recs:
+        assert rec["bitwise"] and rec["ranks_agree"] and rec["moved"], rec
+        assert rec["zo_passes"] == [2 * math.ceil(rec["q"] / 2) + 1] * 2

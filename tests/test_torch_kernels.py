@@ -251,3 +251,35 @@ def test_wrappers_refuse_other_devices():
     lens = torch.empty((2,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tdec.paged_decode_attention(qd, pages, pages, bt, lens)
+
+
+def test_chain_past_the_limit_raises():
+    """Every chain-taking wrapper refuses one delta past ``MAX_CHAIN`` on
+    either device, with the limit in the message (here the CPU's plain
+    versions; the card's in chip_smoke.py), and takes the limit itself."""
+    from repro_torch.kernels import subzo_perturb as tsub
+    from repro_torch.kernels import tezo_adam as tadam
+    from repro_torch.kernels import tezo_perturb as tpert
+    from repro_torch.kernels import zo_noise as tnoise
+
+    w = torch.zeros((16, 24))
+    u, v = torch.ones((16, 4)), torch.ones((24, 4))
+    for k in (_build.MAX_CHAIN, _build.MAX_CHAIN + 1):
+        sc = [1e-3] * k
+        calls = [
+            lambda: tpert.tezo_perturb(w.clone(), u, v, torch.ones((k, 4)), sc),
+            lambda: tpert.lozo_chain_k(w.clone(), u, [v] * k, sc),
+            lambda: tsub.subzo_perturb(w.clone(), u, v, torch.ones((k, 4, 4)), sc),
+            lambda: tadam.tezo_adam_update(w.clone(), u, v, torch.ones(4), torch.ones(4), 1e-3,
+                                           1e-5, tau_r=torch.ones((k, 4)), restore_scale=sc),
+            lambda: tnoise.noise_perturb(w.clone(), (1, 2), [0] * k, sc),
+            lambda: tnoise.noise_update(w.clone(), (1, 2), torch.ones(2), "sgd", 1e-3,
+                                        restore_probes=[0] * k, restore_scales=sc),
+        ]
+        for call in calls:
+            if k == _build.MAX_CHAIN:
+                out = call()
+                assert torch.isfinite(out[0] if isinstance(out, tuple) else out).all()
+            else:
+                with pytest.raises(ValueError, match=f"at most {_build.MAX_CHAIN} deltas"):
+                    call()

@@ -472,9 +472,12 @@ def test_lr_schedule_matches_reference(sched):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh="host:2,1"), dict(probe_parallel=True), dict(ensemble=2),
-    dict(straggler_prob=0.1),
+    dict(mesh="host:2,1"), dict(mesh="host:2,1", ensemble=2), dict(mesh="host:1,2"),
+    dict(mesh="host:2,2", ensemble=2, straggler_prob=0.1),
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises((NotImplementedError, KeyError), match="ROADMAP.md Queue A"):
+    """Sharded parameters (``--mesh`` without ``--probe-parallel``) and the
+    ensemble on a mesh are ROADMAP item 13b; tests/test_torch_distributed.py
+    runs what item 13a ported."""
+    with pytest.raises((NotImplementedError, KeyError), match="ROADMAP.md Queue A item 13b"):
         port_train.train(smoke=True, steps=1, device="cpu", verbose=False, **kw)
