@@ -18,6 +18,12 @@ QuantLeaf as one leaf and pickles it whole under the dense path, which its
 own restore cannot load.)  Writes are atomic (a ``.tmp`` directory renamed into place),
 ``save_async`` copies to the host before it returns and writes on a
 background thread, and only the newest ``keep`` checkpoints stay.
+
+Sharded states.  A sharded run (``distributed.sharding``) gathers its state
+whole onto the host and rank 0 writes it: the layout is the unsharded one.
+``restore(template, shardings=specs, mesh=mesh)`` gives each rank its shard
+of every leaf of the whole checkpoint, cut by the spec tree: a checkpoint
+restores onto any mesh (the reference's elastic restore).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.utils import shard_ctx
 from repro_torch.utils.tree import attr_key, dict_key, flatten_with_path
 
 _MANIFEST = "manifest.json"
@@ -55,13 +62,17 @@ def _dtype_name(arr: np.ndarray) -> str:
     return "bfloat16" if arr.dtype == np.dtype("V2") else str(arr.dtype)
 
 
-def _from_numpy(arr: np.ndarray, dtype_name: str, like: Any) -> Any:
+def _from_numpy(arr: np.ndarray, dtype_name: str, like: Any, cut=None, device=None) -> Any:
+    """One leaf like ``like`` (on ``device`` if given); ``cut`` takes this
+    rank's shard on the host first, so no whole leaf reaches the device."""
     if dtype_name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
+    if cut is not None:
+        t = cut(t)
     if isinstance(like, torch.Tensor):
-        return t.to(device=like.device, dtype=like.dtype)
+        return t.to(device=like.device if device is None else device, dtype=like.dtype)
     if isinstance(like, int):
         return int(t)
     if isinstance(like, np.ndarray):
@@ -132,9 +143,14 @@ class Checkpointer:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
         return final
 
-    def restore(self, template: Any, step: Optional[int] = None) -> tuple[Any, dict]:
-        """Restore into the structure of ``template`` (a state whose leaves
-        give each restored leaf's device and dtype).  Returns (state, extra)."""
+    def restore(self, template: Any, step: Optional[int] = None, shardings: Any = None,
+                mesh: Any = None, device: Any = None) -> tuple[Any, dict]:
+        """Restore into the structure of ``template`` (a whole state, or its
+        meta stand-in, whose leaves give each restored leaf's shape, device
+        and dtype; ``device`` overrides the device).  With ``shardings``
+        (the spec tree of ``sharding.zo_state_specs``, for ``mesh``, which
+        need not be the mesh the checkpoint came from) each leaf is this
+        rank's shard.  Returns (state, extra)."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -143,12 +159,14 @@ class Checkpointer:
         manifest = json.loads((d / _MANIFEST).read_text())
         with np.load(d / "arrays.npz") as arrays:
 
-            def place(node: Any, prefix: str) -> Any:
+            def place(node: Any, prefix: str, spec: Any) -> Any:
                 if isinstance(node, dict):
-                    return {k: place(v, prefix + dict_key(k)) for k, v in node.items()}
+                    return {k: place(v, prefix + dict_key(k), None if spec is None else spec[k])
+                            for k, v in node.items()}
                 if dataclasses.is_dataclass(node) and not isinstance(node, type):
                     return dataclasses.replace(node, **{
-                        f.name: place(getattr(node, f.name), prefix + attr_key(f.name))
+                        f.name: place(getattr(node, f.name), prefix + attr_key(f.name),
+                                      None if spec is None else getattr(spec, f.name))
                         for f in dataclasses.fields(node)
                         if getattr(node, f.name) is not None and not f.metadata.get("static")
                     })
@@ -158,7 +176,9 @@ class Checkpointer:
                 want = tuple(getattr(node, "shape", ()))
                 if tuple(arr.shape) != want:
                     raise ValueError(f"{prefix}: checkpoint {arr.shape} != {want}")
-                return _from_numpy(arr, manifest["paths"][prefix][1], node)
+                return _from_numpy(arr, manifest["paths"][prefix][1], node,
+                                   None if spec is None else
+                                   lambda t: shard_ctx.cut(t, spec, mesh), device)
 
-            state = place(template, "")
+            state = place(template, "", shardings)
         return state, manifest["extra"]

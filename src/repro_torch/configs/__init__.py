@@ -1,14 +1,15 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 Every architecture of the reference is registered; any other id raises
-``KeyError``.
+``KeyError``.  The assigned (arch, shape) cells are the reference's:
+:func:`assigned_cells` and :func:`runnable_cells`.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, long_context_capable
 
 _ARCH_MODULES: dict[str, str] = {
     "opt-125m": "opt_125m",
@@ -23,6 +24,12 @@ _ARCH_MODULES: dict[str, str] = {
     "kimi-k2-1t-a32b": "kimi_k2",
     "xlstm-350m": "xlstm_350m",
 }
+# the assigned architectures, in the reference's order (opt-125m, the
+# paper's own family, is not one of them)
+ARCH_IDS: tuple[str, ...] = (
+    "musicgen-medium", "qwen2.5-14b", "qwen3-32b", "granite-8b", "yi-34b", "xlstm-350m",
+    "hymba-1.5b", "kimi-k2-1t-a32b", "dbrx-132b", "paligemma-3b",
+)
 
 
 def _module(arch_id: str):
@@ -37,3 +44,18 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).SMOKE
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def assigned_cells() -> list[tuple[str, str]]:
+    """All 40 assigned (arch, shape) cells; :func:`runnable_cells` drops
+    long_500k for the full-attention archs."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a, s in assigned_cells()
+            if s != "long_500k" or long_context_capable(get_config(a))]

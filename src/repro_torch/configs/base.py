@@ -10,8 +10,10 @@ hybrid block (hymba-1.5b: sliding ``window`` attention, the Mamba path's
 (dbrx-132b, kimi-k2: ``n_experts``, ``n_experts_per_token``,
 ``moe_capacity_factor``, ``moe_impl``) and the xLSTM block (xlstm-350m:
 ``slstm_layers``, ``mlstm_chunk``).  The reference's sharding hints and
-chunked cross-entropy come with a registered config that sets them.  There
-is no ``kernel_mode``: the tensor's device decides between a kernel and its
+chunked cross-entropy come with a registered config that sets them.  The
+assigned input shapes (``ShapeConfig``, ``SHAPES``) and
+``long_context_capable`` are the reference's too.  There is no
+``kernel_mode``: the tensor's device decides between a kernel and its
 plain version, and between the mLSTM's sequential and chunkwise forms
 (``models.xlstm``).
 """
@@ -44,9 +46,10 @@ class ModelConfig:
     n_experts: int = 0
     n_experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
-    # gspmd (scatter dispatch, gather combine) | ep: the reference's expert-
-    # parallel path needs a mesh (ROADMAP.md item 13); without one it takes
-    # the gspmd path, as here
+    # gspmd (scatter dispatch, gather combine) | ep: the expert-parallel
+    # path (models.transformer._moe_ep, ROADMAP.md item 13b) runs on a mesh
+    # with a model axis; without one it takes the gspmd path, as the
+    # reference does
     moe_impl: str = "gspmd"
     # ---- SSM / hybrid -----------------------------------------------------
     ssm_state: int = 0  # mamba state N (hymba)
@@ -65,3 +68,32 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         return replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_serving(self) -> bool:
+        return self.kind in ("prefill", "decode")
+
+
+# The four assigned LM shapes (identical set for all 10 archs).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode"),
+}
+
+
+def long_context_capable(cfg: ModelConfig) -> bool:
+    """long_500k runs only for sub-quadratic archs (SSM / hybrid-with-SWA);
+    pure full-attention archs skip it."""
+    return cfg.family in ("ssm", "hybrid")

@@ -30,7 +30,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.quant import QuantLeaf
-from repro_torch.utils import jax_random
+from repro_torch.utils import jax_random, shard_ctx
 from repro_torch.utils.tree import fold_in_path, map_with_path
 
 
@@ -86,10 +86,14 @@ def init_factors(
     leaf's device, with its ``rank_masks`` entry (shape (..., r)) as the
     factor's mask.  A QuantLeaf's factors are its own ``qu``/``qv`` (the
     same tensors: nothing writes them), drawn from the same streams at its
-    rank; it takes no mask."""
+    rank; it takes no mask.  On a sharded state (``utils.shard_ctx``) a leaf
+    is this rank's shard: its factors are drawn whole and cut, u by W's
+    rows and v by its columns."""
     factors: FactorTree = {}
 
     def make(path: str, leaf: torch.Tensor) -> torch.Tensor:
+        device = leaf.device
+        leaf = shard_ctx.view(path, leaf)  # a shard's whole leaf: its draws whole, then cut
         if isinstance(leaf, QuantLeaf):
             if rank_masks is not None and path in rank_masks:
                 raise ValueError(
@@ -107,8 +111,10 @@ def init_factors(
                     f"rank_mask for {path} must be {batch + (r,)}, got {tuple(mask.shape)}"
                 )
             factors[path] = CPDFactor(
-                u=jax_random.normal(fold_in_path(key, path + "#u"), batch + (m, r), leaf.device),
-                v=jax_random.normal(fold_in_path(key, path + "#v"), batch + (n, r), leaf.device),
+                u=shard_ctx.rows(path, jax_random.normal(fold_in_path(key, path + "#u"),
+                                                         batch + (m, r), device)),
+                v=shard_ctx.cols(path, jax_random.normal(fold_in_path(key, path + "#v"),
+                                                         batch + (n, r), device)),
                 rank_mask=mask,
             )
         return leaf

@@ -26,6 +26,12 @@ leaf in place unless ``out`` names another buffer (the ``exact`` restore
 mode), and every chained op replays the rounding of the separate passes it
 merges, so chained and unchained schedules agree bit for bit.
 
+Sharded leaves.  Under a shard context (``utils.shard_ctx``) a leaf is this
+rank's shard: eligibility is decided on the whole leaf's shape, the noise
+kernels get the shard's global offsets (the reference's
+``_global_offsets``), and the low-rank ops get the shard and the matching
+factor rows from the estimator.
+
 Quantized leaves (``core.quant.QuantLeaf``).  Every leaf op takes a
 QuantLeaf wherever it takes a dense leaf and branches on the leaf kind
 first.  The TeZO-family ops close the delta in τ-space, ``acc +=
@@ -56,6 +62,7 @@ from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.tezo_adam import tezo_adam_update
 from repro_torch.kernels.subzo_perturb import subzo_perturb
 from repro_torch.kernels.tezo_perturb import add_scaled, lozo_chain_k, tezo_perturb
+from repro_torch.utils import shard_ctx
 
 
 def attention_fwd(
@@ -288,9 +295,9 @@ def noise_perturb_chain_leaf(w, key_t, path, probes, scales, dense_z, *, out=Non
     if isinstance(w, QuantLeaf):
         return _on_nacc(w, noise_perturb_chain_leaf(_quant_nacc(w), key_t, path, probes,
                                                     scales, dense_z, out=out))
-    if noise_kernel_eligible(w):
+    if noise_kernel_eligible(shard_ctx.view(path, w)):
         return zo_noise.noise_perturb(w, zo_noise.leaf_seed(key_t, path), probes, scales,
-                                      out=out)
+                                      out=out, offsets=shard_ctx.leaf_offsets(path, w))
     return _write(_dense_chain(w, probes, scales, dense_z), w, out)
 
 
@@ -311,11 +318,11 @@ def _noise_update(variant, w, m_buf, v_buf, key_t, path, kappas, lr, beta1, beta
                                          kappas, lr, beta1, beta2, eps, dense_z, None,
                                          restore_probe, restore_scale))
     probes, scales = _restore_chain(restore_probe, restore_scale)
-    if noise_kernel_eligible(w):
+    if noise_kernel_eligible(shard_ctx.view(path, w)):
         return zo_noise.noise_update(
             w, zo_noise.leaf_seed(key_t, path), kappas, variant, lr, beta1, beta2, eps,
             decay=decay, m_buf=m_buf, v_buf=v_buf, restore_probes=probes,
-            restore_scales=scales)
+            restore_scales=scales, offsets=shard_ctx.leaf_offsets(path, w))
     res = _dense_chain(w, probes, scales, dense_z)
     g = kappa_fold(kappas, [dense_z(i).float() for i in range(kappas.shape[0])])
     if variant == "sgd":

@@ -33,6 +33,14 @@ are host ints and nothing is read back, so a step never waits on the
 device.  The probe-mean folds run on the device over the flat concatenation
 of every low-rank leaf's draws (elementwise, so the same bits as per-leaf
 folds).
+
+Sharded state (``utils.shard_ctx``).  The params and the
+leaf-shaped state are this rank's shards; every draw above is made whole on
+every rank, at the whole leaf's shape, and cut where a leaf op takes it
+(τ and Σ on the leaf's batch dims, U and u on its rows, V and v on its
+columns, a dense z as the leaf), so each rank's slice is the unsharded
+draw's.  τ-space moments stay whole on every rank; LOZO-m's V-side
+momentum is gathered for its fold and cut again.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from repro_torch.core import dispatch
 from repro_torch.core.cpd import dense_key, init_factors, is_lowrank_leaf, tau_key
 from repro_torch.kernels.subzo_perturb import subzo_perturb
 from repro_torch.kernels.tezo_perturb import lozo_chain_k
-from repro_torch.utils import jax_random
+from repro_torch.utils import jax_random, shard_ctx
 from repro_torch.utils.tree import flatten_with_path, fold_in_path, map_with_path
 
 
@@ -216,7 +224,7 @@ class StepNoise:
                 self._z[path, p] = seg.to(dtype)
 
     def z(self, path: str, probe: int) -> torch.Tensor:
-        return self._z[path, probe]
+        return shard_ctx.like(path, self._z[path, probe])
 
     def dense_z(self, path: str):
         """``probe -> z`` of one leaf drawn on the host (what the dense
@@ -228,29 +236,37 @@ def _out(out, path):
     return None if out is None else out[path]
 
 
-def _restore(draws, path, restore_probe):
+def _restore(draws, path, restore_probe, cut=shard_ctx.lead):
     """One leaf's restore operand for ``update``: None, the draw of one
     probe, or (``restore_probe`` a tuple) the draws of a whole chain in
-    order — the probe-parallel step restores the 3q-delta trajectory."""
+    order — the probe-parallel step restores the 3q-delta trajectory —
+    each cut to this rank's shard by ``cut``."""
     if restore_probe is None:
         return None
     if isinstance(restore_probe, (list, tuple)):
-        return [draws(path, p) for p in restore_probe]
-    return draws(path, restore_probe)
+        return [cut(path, draws(path, p)) for p in restore_probe]
+    return cut(path, draws(path, restore_probe))
 
 
 def _dense_leaves(params, covered) -> dict:
     """{path: leaf} of the leaves that are not in ``covered`` and do not fit
-    the noise kernels: their z is drawn on the host."""
+    the noise kernels: their z is drawn on the host (a sharded leaf by its
+    whole meta view)."""
     dense = {}
 
     def visit(path, w):
+        w = shard_ctx.view(path, w)
         if path not in covered and not dispatch.noise_kernel_eligible(w):
             dense[path] = w
         return w
 
     map_with_path(visit, params)
     return dense
+
+
+def _whole_batch(path: str, batch: tuple) -> tuple:
+    """A leaf's leading (batch) dims, whole when the leaf is sharded."""
+    return tuple(shard_ctx.whole_shape(path, tuple(batch) + (0, 0))[:-2])
 
 
 def _device(params):
@@ -300,7 +316,8 @@ class ZOMethod:
         across steps."""
         factors = self.factors(mstate)
         return StepNoise(_dense_leaves(params, factors), key_t, cfg.q_probes, _device(params),
-                         tau={p: f.batch + (f.rank,) for p, f in factors.items()},
+                         tau={p: _whole_batch(p, f.batch) + (f.rank,)
+                              for p, f in factors.items()},
                          tau_masks={p: f.rank_mask for p, f in factors.items()
                                     if f.rank_mask is not None})
 
@@ -311,7 +328,8 @@ class ZOMethod:
         if path not in factors:
             return None
         return dispatch.perturb_chain_leaf(
-            w, factors[path], [noise.coef(path, p) for p in probes], scales, out=out)
+            w, factors[path], [shard_ctx.lead(path, noise.coef(path, p)) for p in probes],
+            scales, out=out)
 
     def perturb_chain(self, params, mstate, noise, probes, scales, cfg, out=None):
         """scalesᵢ·Z_pᵢ in chain order, one pass per leaf."""
@@ -363,7 +381,7 @@ class TeZO(ZOMethod):
         def f(path, w):
             if path in factors:
                 return dispatch.sgd_update_leaf(
-                    w, factors[path], ktau[path], lr, decay=decay,
+                    w, factors[path], shard_ctx.lead(path, ktau[path]), lr, decay=decay,
                     restore_tau=_restore(noise.coef, path, restore_probe),
                     restore_scale=restore_scale)
             return dispatch.noise_sgd_update_leaf(
@@ -382,8 +400,9 @@ class TeZOMomentum(TeZO):
     def init(self, params, key, cfg, ranks=None, rank_masks=None):
         mstate = super().init(params, key, cfg, ranks, rank_masks)
         factors = mstate["factors"]
-        mstate["tau_m"] = {
-            p: torch.zeros(f.batch + (f.rank,), dtype=torch.float32, device=f.u.device)
+        mstate["tau_m"] = {  # whole on every rank, as τ is
+            p: torch.zeros(_whole_batch(p, f.batch) + (f.rank,), dtype=torch.float32,
+                           device=f.u.device)
             for p, f in factors.items()
         }
         dense_m = {}
@@ -409,7 +428,7 @@ class TeZOMomentum(TeZO):
         def f(path, w):
             if path in factors:
                 return dispatch.sgd_update_leaf(
-                    w, factors[path], new_tau_m[path], lr, decay=decay,
+                    w, factors[path], shard_ctx.lead(path, new_tau_m[path]), lr, decay=decay,
                     restore_tau=_restore(noise.coef, path, restore_probe),
                     restore_scale=restore_scale)
             w, new_dense_m[path] = dispatch.noise_momentum_update_leaf(
@@ -447,7 +466,8 @@ class TeZOAdam(TeZOMomentum):
         def f(path, w):
             if path in factors:
                 return dispatch.adam_update_leaf(
-                    w, factors[path], new_tau_m[path], new_tau_v[path], lr, cfg.eps,
+                    w, factors[path], shard_ctx.lead(path, new_tau_m[path]),
+                    shard_ctx.lead(path, new_tau_v[path]), lr, cfg.eps,
                     decay=decay, restore_tau=_restore(noise.coef, path, restore_probe),
                     restore_scale=restore_scale)
             w, new_dense_m[path], new_dense_v[path] = dispatch.noise_adam_update_leaf(
@@ -621,6 +641,7 @@ class LOZO(ZOMethod):
         leaves = {}
 
         def visit(path, w):
+            w = shard_ctx.view(path, w)
             if is_lowrank_leaf(path, w):
                 leaves[path] = (w, _lowrank_rank(w, cfg))
             return w
@@ -637,7 +658,8 @@ class LOZO(ZOMethod):
     def lowrank_chain(self, path, w, mstate, noise, probes, scales, out):
         if path not in noise.u:
             return None
-        return lozo_chain_k(w, noise.u[path], [noise.v(path, p) for p in probes], list(scales),
+        return lozo_chain_k(w, shard_ctx.rows(path, noise.u[path]),
+                            [shard_ctx.cols(path, noise.v(path, p)) for p in probes], list(scales),
                             out=out)
 
     def _v_update(self, mstate, noise, kappas, cfg) -> tuple[dict, dict]:
@@ -660,8 +682,8 @@ class LOZO(ZOMethod):
         def f(path, w):
             if path in noise.u:
                 return dispatch.lozo_update_leaf(
-                    w, noise.u[path], kv[path], lr, decay=decay,
-                    restore_v=_restore(noise.v, path, restore_probe),
+                    w, shard_ctx.rows(path, noise.u[path]), shard_ctx.cols(path, kv[path]), lr,
+                    decay=decay, restore_v=_restore(noise.v, path, restore_probe, shard_ctx.cols),
                     restore_scale=restore_scale)
             return self._dense_update(w, mstate, noise, path, kappas, lr, cfg, decay,
                                       restore_probe, restore_scale)
@@ -680,15 +702,16 @@ class LOZOMomentum(LOZO):
         vm = {}
 
         def visit(path, w):
+            device, w = w.device, shard_ctx.view(path, w)
             if is_lowrank_leaf(path, w):
                 shape = tuple(w.shape[:-2]) + (w.shape[-1], _lowrank_rank(w, cfg))
             else:
                 shape = tuple(w.shape)
-            vm[path] = torch.zeros(shape, dtype=torch.float32, device=w.device)
+            vm[path] = torch.zeros(shape, dtype=torch.float32, device=device)
             return w
 
         map_with_path(visit, params)
-        mstate["v_m"] = vm
+        mstate["v_m"] = shard_ctx.mstate_cut("v_m", vm)
         return mstate
 
     def begin_step(self, mstate, key_t, step, cfg):
@@ -698,10 +721,14 @@ class LOZOMomentum(LOZO):
 
     def _v_update(self, mstate, noise, kappas, cfg):
         """The low-rank leaves' momentum; the dense leaves' entries of the
-        new ``v_m`` still hold the old momentum until their update."""
-        vm = noise.v.split(cfg.beta1 * noise.v.cat(mstate["v_m"])
+        new ``v_m`` still hold the old momentum until their update.  Sharded,
+        the low-rank entries are gathered whole for the fold and the new
+        ones cut again as they are stored."""
+        old = shard_ctx.mstate_whole("v_m", {p: mstate["v_m"][p] for p in noise.u})
+        vm = noise.v.split(cfg.beta1 * noise.v.cat(old)
                            + (1.0 - cfg.beta1) * noise.v.fold(kappas))
-        return vm, {**mstate, "v_m": {**mstate["v_m"], **vm}}
+        stored = shard_ctx.mstate_cut("v_m", vm)
+        return vm, {**mstate, "v_m": {**mstate["v_m"], **stored}}
 
     def _dense_update(self, w, mstate, noise, path, kappas, lr, cfg, decay, restore_probe,
                       restore_scale):
@@ -744,6 +771,7 @@ class SubZO(ZOMethod):
         shapes = {}
 
         def visit(path, w):
+            w = shard_ctx.view(path, w)
             if is_lowrank_leaf(path, w):
                 shapes[path] = (tuple(w.shape[:-2]), w.shape[-2], w.shape[-1],
                                 _lowrank_rank(w, cfg))
@@ -751,7 +779,9 @@ class SubZO(ZOMethod):
 
         map_with_path(visit, params)
         U, V = _fresh_uv(shapes, base, 0, _device(params))
-        return {"base_key": jax_random.key_data(base), "U": U, "V": V}
+        return {"base_key": jax_random.key_data(base),
+                "U": {p: shard_ctx.rows(p, u) for p, u in U.items()},
+                "V": {p: shard_ctx.cols(p, v) for p, v in V.items()}}
 
     def begin_step(self, mstate, key_t, step, cfg):
         """A fresh subspace at every window boundary.  The host knows the
@@ -760,11 +790,14 @@ class SubZO(ZOMethod):
         if step % cfg.lazy_interval:
             return mstate
         U, V = mstate["U"], mstate["V"]
-        shapes = {p: (tuple(u.shape[:-2]), u.shape[-2], V[p].shape[-2], u.shape[-1])
-                  for p, u in U.items()}
+        shapes = {}
+        for p, u in U.items():
+            *batch, m, n = shard_ctx.whole_shape(p, tuple(u.shape[:-1]) + (V[p].shape[-2],))
+            shapes[p] = (tuple(batch), m, n, u.shape[-1])
         device = next(iter(U.values())).device if U else "cpu"
         U, V = _fresh_uv(shapes, mstate["base_key"], step // cfg.lazy_interval, device)
-        return {**mstate, "U": U, "V": V}
+        return {**mstate, "U": {p: shard_ctx.rows(p, u) for p, u in U.items()},
+                "V": {p: shard_ctx.cols(p, v) for p, v in V.items()}}
 
     def draws(self, params, mstate, key_t, cfg, step=0, cache=None):
         """z for the dense leaves on the host; Σ for every low-rank leaf on
@@ -773,14 +806,14 @@ class SubZO(ZOMethod):
         work)."""
         U = mstate["U"]
         device = _device(params)
-        sigma = _device_draws({p: tuple(u.shape[:-2]) + (u.shape[-1],) * 2 for p, u in U.items()},
-                              cfg.q_probes, _sigma_key, key_t, device, cache)
+        shapes = {p: _whole_batch(p, u.shape[:-2]) + (u.shape[-1],) * 2 for p, u in U.items()}
+        sigma = _device_draws(shapes, cfg.q_probes, _sigma_key, key_t, device, cache)
         return StepNoise(_dense_leaves(params, U), key_t, cfg.q_probes, device, coef=sigma)
 
     def lowrank_chain(self, path, w, mstate, noise, probes, scales, out):
         if path not in mstate["U"]:
             return None
-        sigmas = torch.stack([noise.coef(path, p) for p in probes], dim=-3)
+        sigmas = torch.stack([shard_ctx.lead(path, noise.coef(path, p)) for p in probes], dim=-3)
         return subzo_perturb(w, mstate["U"][path], mstate["V"][path], sigmas, list(scales),
                              out=out)
 
@@ -792,7 +825,8 @@ class SubZO(ZOMethod):
         def f(path, w):
             if path in mstate["U"]:
                 return dispatch.subzo_update_leaf(
-                    w, mstate["U"][path], mstate["V"][path], sbar[path], lr, decay=decay,
+                    w, mstate["U"][path], mstate["V"][path], shard_ctx.lead(path, sbar[path]), lr,
+                    decay=decay,
                     restore_sigma=_restore(noise.coef, path, restore_probe),
                     restore_scale=restore_scale)
             return dispatch.noise_sgd_update_leaf(

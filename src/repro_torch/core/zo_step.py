@@ -37,6 +37,15 @@ update's own delta.  Every delta rounds to the weight dtype as its own pass
 would, so the result is the sequential chained step's bit for bit, on
 ``2·ceil(q/D) + 1`` weight passes per rank.  The all-reduce's copy of the
 2q losses to the host is the step's one wait on the device.
+
+Sharded schedule (``shard``, a ``utils.shard_ctx.ShardCtx``, on a
+``HostMesh`` without ``probe_parallel``).  Each rank holds its shard of
+every param and state leaf, and runs the chained step above on them under
+the context: each leaf op on the rank's shard (the noise kernels at the
+shard's global offsets, the low-rank kernels with the matching factor
+rows), each forward on gathered layers.  ``zo_passes`` stays 2q + 1; the
+caller's ``loss_fn`` is ``sharding.sharded_loss(model)``, which reduces the
+global token mean over the data lanes in rank order.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.estimator import ZOConfig, _device, get_method
-from repro_torch.utils import jax_random
+from repro_torch.utils import jax_random, shard_ctx
 from repro_torch.utils.tree import flatten_with_path
 
 RESTORE_MODES = ("inplace", "unchained", "exact")
@@ -124,21 +133,26 @@ def branch_buffers(scratch: dict, params) -> dict:
 
 
 def build_zo_train_step(
-    loss_fn: Callable[[Any, Any], torch.Tensor], cfg: ZOConfig, *, mesh=None
+    loss_fn: Callable[[Any, Any], torch.Tensor], cfg: ZOConfig, *, mesh=None, shard=None
 ) -> Callable[[ZOTrainState, Any], tuple[ZOTrainState, dict]]:
     """``loss_fn(params, batch)`` → f32 scalar on the params' device.
     ``mesh`` (a ``launch.mesh.HostMesh``) is what the probe-parallel
-    schedule runs on; the other schedules take none."""
+    schedule runs on; ``shard`` (the ``ShardCtx`` of a state that
+    ``distributed.sharding.init_state`` placed on ``mesh``) makes the
+    chained schedule run on shards."""
     method = get_method(cfg.method)
     zo_pass_count(cfg.q_probes, cfg.restore_mode)  # fail fast on unknown schedules
     quant.validate_quant_config(cfg)  # ...and incompatible weight_quant combinations
     if cfg.probe_parallel:
         return _build_probe_parallel_step(loss_fn, cfg, method, mesh)
+    if mesh is not None and mesh.world > 1 and shard is None:
+        raise ValueError("a step on a multi-rank mesh without probe_parallel runs on a "
+                         "sharded state: pass the shard context of sharding.init_state")
     scratch: dict = {}  # the exact mode's copies, reused across steps
     cache: dict = {}  # what the method reuses across steps (LOZO's window of U)
 
     def step_fn(state: ZOTrainState, batch: Any) -> tuple[ZOTrainState, dict]:
-        with torch.inference_mode():
+        with torch.inference_mode(), shard_ctx.placed(shard):
             key_t = jax_random.fold_in(state.base_key, state.step)
             mstate = method.begin_step(state.mstate, key_t, state.step, cfg)
             noise = method.draws(state.params, mstate, key_t, cfg, state.step, cache)

@@ -49,18 +49,18 @@ using noise::kThreads;
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) noise_perturb_kernel(
     const T* w, T* out, uint32_t k0, uint32_t k1, __grid_constant__ const noise::NoiseChain ch,
-    noise::LeadDims lead,
+    noise::LeadDims lead, noise::Offsets off,
     int m, int n) {
   __shared__ uint32_t key[2];
   if (threadIdx.x == 0) {  // a stacked leaf's slice key: ~150 instructions, once a block
     uint32_t a = k0, b = k1;
-    noise::slice_key(a, b, lead, blockIdx.y);
+    noise::slice_key(a, b, lead, off, blockIdx.y);
     key[0] = a;
     key[1] = b;
   }
   __syncthreads();
   noise::Place p;
-  if (!noise::place(p, m, n)) return;
+  if (!noise::place(p, m, n, off)) return;
   const uint32_t s0 = key[0], s1 = key[1];
   const int cols = min(kCols, n - p.col0);
   const size_t i0 = p.base + p.col0;
@@ -70,44 +70,49 @@ __global__ void __launch_bounds__(kThreads) noise_perturb_kernel(
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {  // columns past n draw too; their store is masked
     float z;
-    v[c] = noise::chain<T, K>(v[c], ch, s0, s1, p.row, p.col0 + c, z);
+    v[c] = noise::chain<T, K>(v[c], ch, s0, s1, p.grow, p.gcol0 + c, z);
   }
   noise::store(out + i0, v, cols, vec);
 }
 
 template <typename T, int K>
 int launch(const void* w, void* out, uint32_t k0, uint32_t k1, const noise::NoiseChain& ch,
-           const noise::LeadDims& lead, const dim3& grid, int m, int n, cudaStream_t st) {
+           const noise::LeadDims& lead, const noise::Offsets& off, const dim3& grid, int m,
+           int n, cudaStream_t st) {
   noise_perturb_kernel<T, K><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(w), static_cast<T*>(out), k0, k1, ch, lead, m, n);
+      static_cast<const T*>(w), static_cast<T*>(out), k0, k1, ch, lead, off, m, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 // k = 1 (a perturb) and k = 2 (the bridge) get their own instances.
 template <typename T>
 int dispatch(const void* w, void* out, uint32_t k0, uint32_t k1, const noise::NoiseChain& ch,
-             const noise::LeadDims& lead, const dim3& grid, int m, int n, cudaStream_t st) {
-  if (ch.k == 1) return launch<T, 1>(w, out, k0, k1, ch, lead, grid, m, n, st);
-  if (ch.k == 2) return launch<T, 2>(w, out, k0, k1, ch, lead, grid, m, n, st);
-  return launch<T, 0>(w, out, k0, k1, ch, lead, grid, m, n, st);
+             const noise::LeadDims& lead, const noise::Offsets& off, const dim3& grid, int m,
+             int n, cudaStream_t st) {
+  if (ch.k == 1) return launch<T, 1>(w, out, k0, k1, ch, lead, off, grid, m, n, st);
+  if (ch.k == 2) return launch<T, 2>(w, out, k0, k1, ch, lead, off, grid, m, n, st);
+  return launch<T, 0>(w, out, k0, k1, ch, lead, off, grid, m, n, st);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // w, out: B slices [m, n] (may be the same buffer); (k0, k1) the leaf key;
-// lead the leaf's leading dims (their product B); dtype 0 = f32, 1 = bf16.
+// lead the leaf's leading dims (their product B); off the global origin of
+// a shard (zeros for a whole leaf); dtype 0 = f32, 1 = bf16.
 extern "C" int noise_perturb_fwd(const void* w, void* out, uint32_t k0, uint32_t k1,
                                  repro_torch::noise::NoiseChain chain,
-                                 repro_torch::noise::LeadDims lead, int B, int m, int n,
+                                 repro_torch::noise::LeadDims lead,
+                                 repro_torch::noise::Offsets off, int B, int m, int n,
                                  int dtype, void* stream) {
   using namespace repro_torch;
   dim3 grid;
   if (!noise::valid(chain, 1) || !noise::valid(lead, B) || m >= (1 << 24) ||
-      !noise::grid_of(grid, B, m, n))
+      !noise::valid(off, lead, m) || !noise::grid_of(grid, B, m, n))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(w, out, k0, k1, chain, lead, grid, m, n, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(w, out, k0, k1, chain, lead, grid, m, n, st);
+  if (dtype == 0) return dispatch<float>(w, out, k0, k1, chain, lead, off, grid, m, n, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(w, out, k0, k1, chain, lead, off, grid, m, n, st);
   return cudaErrorInvalidValue;
 }

@@ -34,7 +34,9 @@
 // the Pallas kernel multiplies (the reference's jnp oracle divides by q
 // instead); 1 - b1 and 1 - b2 are formed in f32 on the host; the Adam
 // rsqrt is the correctly rounded one (__frsqrt_rn), not the fast
-// approximation.
+// approximation.  A shard of a sharded leaf passes its global origin
+// (zo_noise.cuh Offsets), as noise_perturb.cu does: its draws, and so its
+// result, are the matching slice of the whole leaf's.
 
 #include "zo_noise.cuh"
 
@@ -61,19 +63,19 @@ template <typename T, int kVariant>
 __global__ void __launch_bounds__(kThreads) noise_update_kernel(
     T* w, float* mbuf, float* vbuf, const float* __restrict__ kappas, int q, uint32_t k0,
     uint32_t k1, __grid_constant__ const noise::NoiseChain restore, NoiseHyp hyp,
-    noise::LeadDims lead, int m, int n) {
+    noise::LeadDims lead, noise::Offsets off, int m, int n) {
   __shared__ uint32_t key[2];
   __shared__ float kap[noise::kMaxProbes];
   if (threadIdx.x == 0) {
     uint32_t a = k0, b = k1;
-    noise::slice_key(a, b, lead, blockIdx.y);
+    noise::slice_key(a, b, lead, off, blockIdx.y);
     key[0] = a;
     key[1] = b;
   }
   for (int i = threadIdx.x; i < q; i += kThreads) kap[i] = kappas[i];
   __syncthreads();
   noise::Place p;
-  if (!noise::place(p, m, n)) return;
+  if (!noise::place(p, m, n, off)) return;
   const uint32_t s0 = key[0], s1 = key[1];
   // the last restore probe's z is drawn once: the restore applies it and g
   // takes it again (the chained step restores probe q - 1 here)
@@ -88,11 +90,11 @@ __global__ void __launch_bounds__(kThreads) noise_update_kernel(
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     if (c >= cols) break;
-    const int col = p.col0 + c;
+    const uint32_t col = p.gcol0 + c;  // the global column the draws key on
     float z_rp = 0.f;
-    const float wr = noise::chain<T>(wv[c], restore, s0, s1, p.row, col, z_rp);
+    const float wr = noise::chain<T>(wv[c], restore, s0, s1, p.grow, col, z_rp);
     auto z_of = [&](int pr) {
-      return pr == reuse ? z_rp : noise::counter_normal(s0, s1, p.row, col, pr);
+      return pr == reuse ? z_rp : noise::counter_normal(s0, s1, p.grow, col, pr);
     };
     float g = __fmul_rn(kap[0], z_of(0));
     for (int pr = 1; pr < q; ++pr) g = __fadd_rn(g, __fmul_rn(kap[pr], z_of(pr)));
@@ -116,22 +118,26 @@ __global__ void __launch_bounds__(kThreads) noise_update_kernel(
 template <typename T, int kVariant>
 int launch(void* w, float* mbuf, float* vbuf, const float* kappas, int q, uint32_t k0,
            uint32_t k1, const noise::NoiseChain& restore, const NoiseHyp& hyp,
-           const noise::LeadDims& lead, const dim3& grid, int m, int n, cudaStream_t st) {
+           const noise::LeadDims& lead, const noise::Offsets& off, const dim3& grid, int m,
+           int n, cudaStream_t st) {
   noise_update_kernel<T, kVariant><<<grid, kThreads, 0, st>>>(
-      static_cast<T*>(w), mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, m, n);
+      static_cast<T*>(w), mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, off, m, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int variant, void* w, float* mbuf, float* vbuf, const float* kappas, int q,
              uint32_t k0, uint32_t k1, const noise::NoiseChain& restore, const NoiseHyp& hyp,
-             const noise::LeadDims& lead, const dim3& grid, int m, int n, cudaStream_t st) {
+             const noise::LeadDims& lead, const noise::Offsets& off, const dim3& grid, int m,
+             int n, cudaStream_t st) {
   if (variant == kSgd)
-    return launch<T, kSgd>(w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, grid, m, n, st);
+    return launch<T, kSgd>(w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, off, grid, m,
+                           n, st);
   if (variant == kMomentum)
-    return launch<T, kMomentum>(w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, grid, m,
-                                n, st);
-  return launch<T, kAdam>(w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, grid, m, n, st);
+    return launch<T, kMomentum>(w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, off,
+                                grid, m, n, st);
+  return launch<T, kAdam>(w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, off, grid, m,
+                          n, st);
 }
 
 }  // namespace
@@ -139,25 +145,27 @@ int dispatch(int variant, void* w, float* mbuf, float* vbuf, const float* kappas
 
 // w: B slices [m, n], updated in place; mbuf / vbuf: f32 of W's shape, in
 // place (momentum: mbuf; adam: both; else ignored); kappas: [q] f32 on the
-// card; restore: the restore chain (k = 0 for none); variant 0 sgd,
-// 1 momentum, 2 adam; dtype 0 = f32, 1 = bf16.
+// card; restore: the restore chain (k = 0 for none); off: the global origin
+// of a shard (zeros for a whole leaf); variant 0 sgd, 1 momentum, 2 adam;
+// dtype 0 = f32, 1 = bf16.
 extern "C" int noise_update_fwd(void* w, float* mbuf, float* vbuf, const float* kappas, int q,
                                 uint32_t k0, uint32_t k1, repro_torch::noise::NoiseChain restore,
                                 repro_torch::NoiseHyp hyp, repro_torch::noise::LeadDims lead,
-                                int variant, int B, int m, int n, int dtype, void* stream) {
+                                repro_torch::noise::Offsets off, int variant, int B, int m,
+                                int n, int dtype, void* stream) {
   using namespace repro_torch;
   dim3 grid;
   if (q < 1 || q >= noise::kMaxProbes || variant < 0 || variant > 2 ||
       !noise::valid(restore, 0) || !noise::valid(lead, B) || m >= (1 << 24) ||
-      !noise::grid_of(grid, B, m, n) || (variant >= 1 && mbuf == nullptr) ||
-      (variant == 2 && vbuf == nullptr))
+      !noise::valid(off, lead, m) || !noise::grid_of(grid, B, m, n) ||
+      (variant >= 1 && mbuf == nullptr) || (variant == 2 && vbuf == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(variant, w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, grid,
-                           m, n, st);
+    return dispatch<float>(variant, w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp, lead, off,
+                           grid, m, n, st);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(variant, w, mbuf, vbuf, kappas, q, k0, k1, restore, hyp,
-                                   lead, grid, m, n, st);
+                                   lead, off, grid, m, n, st);
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 """Distributed training (counterpart of ``repro.distributed``): the
 probe-parallel lanes' assignment, the distinct-seed ensemble, straggler
-masks and fault plans.  Sharded parameters (the reference's
-``sharding.py``) are ROADMAP.md Queue A item 13b."""
+masks and fault plans, and sharded parameters and ZO state
+(``distributed.sharding``)."""
 
 from repro_torch.distributed.collectives import (
     apply_kappa_weights,

@@ -15,7 +15,9 @@ The reference vmaps over the members with the ensemble axis sharded over
 pods; the port runs them on one device in turn.  Each member perturbs ±ρ
 off the original params into one scratch set of buffers (as the ``exact``
 restore mode does), so the step makes 2n + 1 weight passes beside one extra
-copy of the weights.
+copy of the weights.  On a sharded state (``shard``, a
+``utils.shard_ctx.ShardCtx``) the members run on the shards, each member's loss on
+its batch slice over the data lanes (``sharding.sharded_loss``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.core.estimator import ZOConfig, _device, get_method
 from repro_torch.core.zo_step import ZOTrainState, branch_buffers
+from repro_torch.distributed import sharding
 from repro_torch.utils import jax_random
 
 
@@ -55,11 +58,13 @@ def build_ensemble_zo_train_step(
     cfg: ZOConfig,
     n_ensemble: int,
     straggler_mask_fn: Optional[Callable[[int], torch.Tensor]] = None,
+    shard=None,
 ) -> Callable[[ZOTrainState, Any], tuple[ZOTrainState, dict]]:
     """The distinct-seed ensemble step.  The global batch must divide into
     ``n_ensemble`` contiguous slices; member i sees slice i and probe i.
     ``straggler_mask_fn(step)`` gives [n] host 0/1 weights (simulated
-    faults, ``fault.StragglerSim``) that drop members."""
+    faults, ``fault.StragglerSim``) that drop members.  ``shard``: the
+    shard context of a sharded state (``sharding.init_state``)."""
     method = get_method(cfg.method)
     draws_cfg = dataclasses.replace(cfg, q_probes=n_ensemble)  # probes 0 .. n-1
     scratch: dict = {}
@@ -73,7 +78,7 @@ def build_ensemble_zo_train_step(
                  for k, v in batch.items()} for i in range(n_ensemble)]
 
     def step_fn(state: ZOTrainState, batch: Any) -> tuple[ZOTrainState, dict]:
-        with torch.inference_mode():
+        with torch.inference_mode(), sharding.placed(shard):
             key_t = jax_random.fold_in(state.base_key, state.step)
             mstate = method.begin_step(state.mstate, key_t, state.step, cfg)
             noise = method.draws(state.params, mstate, key_t, draws_cfg, state.step, cache)

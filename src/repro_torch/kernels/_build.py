@@ -111,6 +111,25 @@ class LeadDims(ctypes.Structure):
         return ld
 
 
+class NoiseOffsets(ctypes.Structure):
+    """``repro_torch::noise::Offsets``: a shard's global origin (its leading
+    indices, row and column), by value; zeros for a whole leaf."""
+
+    _fields_ = [("lead", _I * MAX_LEAD), ("row0", _I), ("col0", _I)]
+
+    @classmethod
+    def of(cls, offsets) -> "NoiseOffsets":
+        """From one int per dim of the leaf (None: all zeros)."""
+        off = cls()
+        if offsets is not None:
+            *lead, off.row0, off.col0 = (int(o) for o in offsets)
+            if len(lead) > MAX_LEAD:
+                raise ValueError(f"a leaf has at most {MAX_LEAD} leading dims")
+            for i, o in enumerate(lead):
+                off.lead[i] = o
+        return off
+
+
 class NoiseHyp(ctypes.Structure):
     """``repro_torch::NoiseHyp`` (csrc/noise_update.cu), by value; its
     fields read back as the f32 values the kernel gets."""
@@ -146,12 +165,13 @@ _SIGNATURES = {
     # w, out, u, v, tau_m, tau_v, tau_r, restore chain, -lr, eps, decay,
     # B, m, n, r, dtype, stream
     "tezo_adam_update_fwd": [_P] * 7 + [DeltaChain, _F, _F, _F] + [_I] * 5 + [_P],
-    # w, out, k0, k1, chain, lead dims, B, m, n, dtype, stream
-    "noise_perturb_fwd": [_P, _P, _U, _U, NoiseChain, LeadDims] + [_I] * 4 + [_P],
-    # w, m, v, kappas, q, k0, k1, restore chain, hyp, lead dims, variant, B,
-    # m, n, dtype, stream
-    "noise_update_fwd": [_P] * 4 + [_I, _U, _U, NoiseChain, NoiseHyp, LeadDims] + [_I] * 5
+    # w, out, k0, k1, chain, lead dims, offsets, B, m, n, dtype, stream
+    "noise_perturb_fwd": [_P, _P, _U, _U, NoiseChain, LeadDims, NoiseOffsets] + [_I] * 4
     + [_P],
+    # w, m, v, kappas, q, k0, k1, restore chain, hyp, lead dims, offsets,
+    # variant, B, m, n, dtype, stream
+    "noise_update_fwd": [_P] * 4 + [_I, _U, _U, NoiseChain, NoiseHyp, LeadDims, NoiseOffsets]
+    + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -28,6 +28,14 @@ perturb into ``out`` if given), the update its f32 moments too.  One
 launch per leaf, the slice of a stacked leaf on the grid, ragged edges
 masked.  On a CPU tensor each runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
+
+Shards (``offsets``).  When ``w`` is one rank's shard of a leaf sharded on
+a host mesh (``distributed.sharding``), ``offsets`` holds the global
+coordinates of its origin, one int per dim, with the meaning of the
+reference's ``ops.noise_perturb(..., offsets=)``: each slice key takes the
+global leading index and each draw the global row and column, so the
+shard's result is the matching slice of the whole leaf's, bit for bit.  No
+offsets means zeros.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import LeadDims, NoiseChain, NoiseHyp
+from repro_torch.kernels._build import LeadDims, NoiseChain, NoiseHyp, NoiseOffsets
 from repro_torch.kernels.tezo_perturb import _DTYPES, _check_out
 from repro_torch.utils import jax_random
 from repro_torch.utils.tree import _path_hash
@@ -60,21 +68,38 @@ def leaf_seed(key_t, path: str) -> tuple[int, int]:
     return k0 ^ _path_hash(path), k1
 
 
-def batch_seeds(seed, batch: int) -> list[tuple[int, int]]:
-    """One key per slice of a leading dim: the slice index encrypted under
-    the parent key with the tweak word (not XOR-ed in, which would collide
-    across nesting levels)."""
+def batch_seeds(seed, batch: int, offset: int = 0) -> list[tuple[int, int]]:
+    """One key per slice of a leading dim: the global slice index (``offset``
+    + the local one) encrypted under the parent key with the tweak word
+    (not XOR-ed in, which would collide across nesting levels)."""
     k0, k1 = seed
-    return [jax_random.threefry2x32(k0, k1, i, BATCH_TWEAK) for i in range(batch)]
+    return [jax_random.threefry2x32(k0, k1, i + offset, BATCH_TWEAK) for i in range(batch)]
 
 
-def _slices(shape, seed):
+def _slices(shape, seed, lead_offsets=()):
     """(index, key) of every [m, n] matrix of a leaf, the leading dims
-    peeled one level at a time."""
+    peeled one level at a time (``lead_offsets``: a shard's global leading
+    indices)."""
     if len(shape) == 2:
         return [((), seed)]
-    return [((i,) + idx, s) for i, si in enumerate(batch_seeds(seed, shape[0]))
-            for idx, s in _slices(shape[1:], si)]
+    off = lead_offsets[0] if lead_offsets else 0
+    return [((i,) + idx, s)
+            for i, si in enumerate(batch_seeds(seed, shape[0], off))
+            for idx, s in _slices(shape[1:], si, lead_offsets[1:])]
+
+
+def _offsets(w, offsets) -> tuple:
+    """One int per dim of ``w`` (zeros for None), checked."""
+    if offsets is None:
+        return (0,) * w.dim()
+    offsets = tuple(int(o) for o in offsets)
+    if len(offsets) != w.dim() or any(o < 0 for o in offsets):
+        raise ValueError(f"offsets {offsets} must be {w.dim()} ints >= 0 for W "
+                         f"{tuple(w.shape)}")
+    if offsets[-2] + w.shape[-2] >= MAX_ROWS:
+        raise ValueError(f"global rows up to {offsets[-2] + w.shape[-2]}: the row index must "
+                         "fit 24 bits")
+    return offsets
 
 
 # glibc's cosf tables (sysdeps/ieee754/flt-32/sincosf_data.c)
@@ -126,16 +151,19 @@ def cosf(y: torch.Tensor) -> torch.Tensor:
 _BLOCK = {"cpu": 1 << 18, "cuda": 1 << 24}
 
 
-def counter_normal(seed, m: int, n: int, probe: int, device="cpu") -> torch.Tensor:
+def counter_normal(seed, m: int, n: int, probe: int, device="cpu", row0: int = 0,
+                   col0: int = 0) -> torch.Tensor:
     """z ~ N(0, 1) f32 of every element of an [m, n] matrix under key
-    ``seed``: Threefry-2x32 on (col, row | probe << 24), then Box–Muller."""
+    ``seed``: Threefry-2x32 on (col, row | probe << 24), then Box–Muller;
+    the matrix's element (0, 0) is the whole one's (row0, col0)."""
     k0, k1 = seed
     device = torch.device(device)
     out = torch.empty(m, n, dtype=torch.float32, device=device)
-    cols = torch.arange(n, dtype=torch.int64, device=device).unsqueeze(0)
+    cols = torch.arange(col0, col0 + n, dtype=torch.int64, device=device).unsqueeze(0)
     step = max(1, _BLOCK[device.type] // n)
     for r0 in range(0, m, step):
-        rows = torch.arange(r0, min(r0 + step, m), dtype=torch.int64, device=device)
+        rows = torch.arange(row0 + r0, row0 + min(r0 + step, m), dtype=torch.int64,
+                            device=device)
         shape = (rows.numel(), n)
         b0, b1 = jax_random.threefry2x32(k0, k1, cols.expand(shape),
                                          (rows.unsqueeze(1) | (int(probe) << 24)).expand(shape))
@@ -171,15 +199,16 @@ def _chain(probes, scales) -> list[tuple[int, float]]:
     return [(int(p), _f32(s)) for p, s in zip(probes, scales)]
 
 
-def noise_perturb_plain(w, seed, probes, scales, out=None):
+def noise_perturb_plain(w, seed, probes, scales, out=None, offsets=None):
     """The kernel's function in plain PyTorch, one matrix slice at a time."""
     chain = _chain(probes, scales)
     out = w if out is None else out
     m, n = w.shape[-2:]
-    for idx, s in _slices(tuple(w.shape), seed):
+    *lead_off, row0, col0 = _offsets(w, offsets)
+    for idx, s in _slices(tuple(w.shape), seed, tuple(lead_off)):
         wf = w[idx].float()
         for p, sc in chain:
-            wf = _delta(wf, sc, counter_normal(s, m, n, p, w.device), w.dtype)
+            wf = _delta(wf, sc, counter_normal(s, m, n, p, w.device, row0, col0), w.dtype)
         out[idx].copy_(wf)
     return out
 
@@ -201,7 +230,7 @@ def _rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
 
 def noise_update_plain(w, seed, kappas, variant, lr, beta1=0.0, beta2=0.0, eps=0.0,
                        decay=None, m_buf=None, v_buf=None, restore_probes=(),
-                       restore_scales=()):
+                       restore_scales=(), offsets=None):
     """The kernel's function in plain PyTorch; W, M and V in place.  A
     probe that both the restore chain and g read is drawn once per slice
     (the chained step restores its last probe: one draw in four saved)."""
@@ -209,12 +238,13 @@ def noise_update_plain(w, seed, kappas, variant, lr, beta1=0.0, beta2=0.0, eps=0
     q = kappas.shape[0]
     h = _hyp(lr, beta1, beta2, eps, decay, q)
     m, n = w.shape[-2:]
-    for idx, s in _slices(tuple(w.shape), seed):
+    *lead_off, row0, col0 = _offsets(w, offsets)
+    for idx, s in _slices(tuple(w.shape), seed, tuple(lead_off)):
         drawn: dict = {}
 
         def z(p):
             if p not in drawn:
-                drawn[p] = counter_normal(s, m, n, p, w.device)
+                drawn[p] = counter_normal(s, m, n, p, w.device, row0, col0)
             return drawn[p]
 
         wf = w[idx].float()
@@ -263,13 +293,14 @@ def _check_leaf(w, seed):
     return LeadDims.of(lead), math.prod(lead), m, n
 
 
-def noise_perturb(w, seed, probes, scales, out=None):
+def noise_perturb(w, seed, probes, scales, out=None, offsets=None):
     """Apply ``scales[i]·z_{probes[i]}`` in chain order to ``w`` (in place,
     or into ``out``) and return the result.  ``seed`` is the leaf key (two
-    ints); ``probes`` and ``scales`` are host values."""
+    ints); ``probes`` and ``scales`` are host values; ``offsets`` a shard's
+    global origin (one int per dim; None for a whole leaf)."""
     _build.check_chain(len(scales))
     if w.device.type == "cpu":
-        return noise_perturb_plain(w, seed, probes, scales, out=out)
+        return noise_perturb_plain(w, seed, probes, scales, out=out, offsets=offsets)
     if w.device.type != "cuda":
         raise ValueError(f"noise_perturb runs on cuda or cpu, not {w.device}")
     chain = _chain(probes, scales)
@@ -280,8 +311,9 @@ def noise_perturb(w, seed, probes, scales, out=None):
     lib = _build.load()
     with torch.cuda.device(w.device):
         err = lib.noise_perturb_fwd(w.data_ptr(), out.data_ptr(), seed[0], seed[1],
-                                    NoiseChain.of(chain), lead, B, m, n, _DTYPES[w.dtype],
-                                    torch.cuda.current_stream().cuda_stream)
+                                    NoiseChain.of(chain), lead,
+                                    NoiseOffsets.of(_offsets(w, offsets)), B, m, n,
+                                    _DTYPES[w.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(err, "noise_perturb_fwd")
     noise_perturb.launches += 1
     return out
@@ -291,10 +323,11 @@ noise_perturb.launches = 0
 
 
 def noise_update(w, seed, kappas, variant, lr, beta1=0.0, beta2=0.0, eps=0.0, decay=None,
-                 m_buf=None, v_buf=None, restore_probes=(), restore_scales=()):
+                 m_buf=None, v_buf=None, restore_probes=(), restore_scales=(), offsets=None):
     """The fused update of one leaf in place; returns ``(w,)``, ``(w, m)``
     or ``(w, m, v)``.  ``kappas`` is the step's [q] f32 vector on W's
-    device; the hyperparameters are host floats."""
+    device; the hyperparameters are host floats; ``offsets`` as
+    :func:`noise_perturb`'s."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown update variant {variant!r}; expected one of {VARIANTS}")
     moments = (m_buf,) if variant == "momentum" else (m_buf, v_buf) if variant == "adam" else ()
@@ -307,7 +340,7 @@ def noise_update(w, seed, kappas, variant, lr, beta1=0.0, beta2=0.0, eps=0.0, de
     _build.check_chain(len(restore_scales))
     if w.device.type == "cpu":
         return noise_update_plain(w, seed, kappas, variant, lr, beta1, beta2, eps, decay,
-                                  m_buf, v_buf, restore_probes, restore_scales)
+                                  m_buf, v_buf, restore_probes, restore_scales, offsets)
     if w.device.type != "cuda":
         raise ValueError(f"noise_update runs on cuda or cpu, not {w.device}")
     restore = _chain(restore_probes, restore_scales)
@@ -322,6 +355,7 @@ def noise_update(w, seed, kappas, variant, lr, beta1=0.0, beta2=0.0, eps=0.0, de
         err = lib.noise_update_fwd(w.data_ptr(), m_ptr, v_ptr, kappas.data_ptr(), q,
                                    seed[0], seed[1], NoiseChain.of(restore),
                                    _hyp(lr, beta1, beta2, eps, decay, q), lead,
+                                   NoiseOffsets.of(_offsets(w, offsets)),
                                    VARIANTS.index(variant), B, m, n, _DTYPES[w.dtype],
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(err, "noise_update_fwd")

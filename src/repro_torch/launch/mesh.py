@@ -4,11 +4,15 @@
 The reference shards over a jax ``Mesh`` of devices with axes ("data",
 "model"); the port runs one process per rank, and rank r sits at data
 index r // M and model index r % M, as the reference reshapes its devices
-to (D, M).  What the ranks exchange today is the probe-parallel step's 2q
-losses a step, on a gloo group: gloo serves on the CPU and beside the card
-alike (the losses cross the host anyway), and the one-card machine cannot
-give two ranks NCCL on one GPU.  Sharded parameters and their device
-collectives are ROADMAP.md Queue A item 13b.
+to (D, M).  The ranks exchange the probe-parallel step's 2q losses on a
+gloo group, and the sharded step's (``distributed.sharding``) all-gathers
+of parameter shards, loss and κ partial sums and the expert-parallel MoE's
+sums.  Those go through :meth:`HostMesh.all_gather`, whose backend follows
+from the job's layout (:func:`collective_backend`): NCCL on the card when
+every rank has a card of its own, else gloo, staged through pinned host
+memory on the card (CPU ranks, or ranks that share one card: NCCL refuses
+two ranks on one GPU).  The choice is made once, from the layout, and never
+after an error.
 
 :func:`host_ranks` starts the ranks of one command: under ``torchrun`` (or
 as a rank it spawned) the process joins the group its environment names;
@@ -35,13 +39,16 @@ _TIMEOUT = timedelta(minutes=10)
 
 @dataclass(frozen=True)
 class HostMesh:
-    """This process's place on a ``data`` x ``model`` mesh of ranks, and
-    the gloo group that joins them (None on a one-rank mesh)."""
+    """This process's place on a ``data`` x ``model`` mesh of ranks, the
+    gloo group that joins them (None on a one-rank mesh) and the backend of
+    :meth:`all_gather` (``"gloo"``, or ``"nccl"`` with its own group)."""
 
     data: int
     model: int
     rank: int = 0
     group: Optional[Any] = None
+    backend: str = "gloo"
+    nccl_group: Optional[Any] = None
 
     axis_names = ("data", "model")
 
@@ -60,6 +67,31 @@ class HostMesh:
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    def coords(self, rank: int | None = None) -> dict:
+        """{axis: index} of ``rank`` (this rank by default)."""
+        r = self.rank if rank is None else rank
+        return {"data": r // self.model, "model": r % self.model}
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[world, *t.shape]``: every rank's ``t`` in rank order, on t's
+        device.  gloo stages the card's tensors through pinned host memory
+        (the copy to the host is a wait on the card, allowed here alone);
+        NCCL gathers on the card (one card per rank)."""
+        if self.group is None:
+            return t[None].clone()
+        if self.backend == "nccl":
+            out = torch.empty((self.world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(out, t.contiguous(), group=self.nccl_group)
+            return out
+        with host_sync_allowed():  # as bytes: gloo takes any dtype so
+            host = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+            parts = [torch.empty_like(host) for _ in range(self.world)]
+            dist.all_gather(parts, host, group=self.group)
+        out = torch.stack(parts)
+        if t.device.type == "cuda":
+            out = out.pin_memory().to(t.device, non_blocking=True)
+        return out.view(t.dtype).view((self.world,) + tuple(t.shape))
 
     def all_reduce_losses(self, f_mat: Optional[torch.Tensor], q: int,
                           device) -> torch.Tensor:
@@ -92,9 +124,29 @@ def parse_mesh(arg: str) -> tuple[int, int]:
     return d, m
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
+def collective_backend(world: int, device) -> str:
+    """The backend of a job's device collectives, from its layout: NCCL
+    when the ranks run on the card and each has a card of its own (rank r
+    on ``cuda:r``), else gloo (CPU ranks, or ranks sharing one card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and world > 1 and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(mesh: "HostMesh | None", device):
+    """The device a rank runs on: its own card ``cuda:rank`` under NCCL,
+    else ``device`` (the shared card or the CPU)."""
+    if mesh is not None and mesh.backend == "nccl":
+        return torch.device("cuda", mesh.rank)
+    return torch.device(device)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device="cpu") -> HostMesh:
     """The D x M mesh of this process's torch.distributed job (its world
-    size must be D·M), on a gloo group; a 1 x 1 mesh needs no job."""
+    size must be D·M), on a gloo group, with an NCCL group beside it when
+    :func:`collective_backend` picks NCCL for ``device``; a 1 x 1 mesh needs
+    no job."""
     n = data * model
     if not dist.is_initialized():
         if n == 1:
@@ -107,7 +159,9 @@ def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
         raise ValueError(f"a {data} x {model} mesh needs {n} ranks; the job has "
                          f"{dist.get_world_size()}")
     group = dist.group.WORLD if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
-    return HostMesh(data, model, dist.get_rank(), group)
+    backend = collective_backend(n, device)
+    nccl_group = dist.new_group(backend="nccl") if backend == "nccl" else None
+    return HostMesh(data, model, dist.get_rank(), group, backend, nccl_group)
 
 
 def _free_port() -> int:

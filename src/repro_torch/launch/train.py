@@ -21,6 +21,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --ensemble 4 --straggler-prob 0.25                    # distinct-seed ensemble
     PYTHONPATH=src python -m repro_torch.launch.train \\
+        --mesh host:1,2 --method tezo_adam                    # sharded over 2 ranks
+    PYTHONPATH=src python -m repro_torch.launch.train \\
         --smoke --device cpu --steps 10                       # plain versions
 
 Build the model (``--layers N`` cuts the registered config's depth) and
@@ -58,11 +60,24 @@ same device (the one card, or the CPU with ``--device cpu``), reading the
 same batches; rank 0 alone prints, writes checkpoints and the log file.
 It composes with ``--adaptive-q`` (the step is rebuilt at a log boundary,
 on every rank alike: they all see the same κ).  ``--ensemble N`` runs the
-distinct-seed ensemble (``distributed.collectives``) on one device, with
+distinct-seed ensemble (``distributed.collectives``), with
 ``--straggler-prob p`` dropping members by ``distributed.fault.
-StragglerSim(N, p, seed + 99)``.  ``--mesh`` without ``--probe-parallel``
-(sharded parameters) and ``--ensemble`` with ``--mesh`` raise and name
-their ROADMAP.md item, 13b.
+StragglerSim(N, p, seed + 99)``.
+
+``--mesh host:D,M`` without ``--probe-parallel`` trains sharded
+(``distributed.sharding``): each rank draws its shard of every param and
+state leaf alone, or, after ``--pretrain-steps`` or ``--rank-mode
+spectral`` (on every rank, on the whole params), cuts the params; the step
+runs the leaf ops on the shards,
+gathers each layer just in time for the forward, and reduces the loss over
+the D data lanes, each of which reads its share of the batch.  It composes
+with ``--ensemble``.  ``final_eval_loss`` is the whole state's (layers
+gathered, the whole eval batch on every rank) and a checkpoint is the
+gathered, whole state, written by rank 0; a restore cuts it onto the run's
+mesh.  The result names the ``collective_backend`` (gloo, or NCCL where
+every rank has a card of its own) and each rank's resident param + state
+bytes.  ``--weight-quant`` on a sharded mesh is ROADMAP.md item 13c and
+raises.
 """
 
 from __future__ import annotations
@@ -86,24 +101,26 @@ from repro_torch.core.estimator import ZOConfig, get_method
 from repro_torch.core.rank import select_ranks
 from repro_torch.core.zo_step import build_zo_train_step, init_zo_state, zo_pass_count
 from repro_torch.data import DataConfig, Prefetcher, batch_at_step
-from repro_torch.distributed import StragglerSim, build_ensemble_zo_train_step
+from repro_torch.distributed import StragglerSim, build_ensemble_zo_train_step, sharding
 from repro_torch.kernels import _build
-from repro_torch.launch.mesh import HostMesh, host_ranks, make_host_mesh, parse_mesh
+from repro_torch.launch.mesh import (HostMesh, host_ranks, make_host_mesh, parse_mesh,
+                                     rank_device)
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, build_fo_train_step, init_fo_state
 from repro_torch.utils.jax_random import PRNGKey
+from repro_torch.utils.tree import tree_size_bytes
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue A item {item})")
 
 
-def _check_options(*, mesh, probe_parallel, ensemble, adaptive_q, method) -> None:
+def _check_options(*, mesh, probe_parallel, ensemble, adaptive_q, method,
+                   weight_quant="none") -> None:
     """Refuse what does not compose, the reference's refusals first."""
-    if mesh is not None and not probe_parallel:
-        raise _not_ported("--mesh without --probe-parallel (sharded parameters)", "13b")
-    if ensemble > 1 and mesh is not None:
-        raise _not_ported("--ensemble with --mesh", "13b")
+    if mesh is not None and not probe_parallel and weight_quant != "none":
+        raise _not_ported("--weight-quant with a sharded --mesh (quantized leaves on a mesh)",
+                          "13c")
     if probe_parallel and mesh is None:
         raise ValueError(
             "--probe-parallel requires --mesh with a data axis (the q probes "
@@ -191,14 +208,15 @@ def train(
     place.  ``mesh`` is this rank's ``HostMesh`` or ``"host:D,M"`` (one
     rank: :func:`main` starts several)."""
     _check_options(mesh=mesh, probe_parallel=probe_parallel, ensemble=ensemble,
-                   adaptive_q=adaptive_q, method=method)
+                   adaptive_q=adaptive_q, method=method, weight_quant=weight_quant)
     if isinstance(mesh, str):
-        mesh = make_host_mesh(*parse_mesh(mesh))
+        mesh = make_host_mesh(*parse_mesh(mesh), device=device)
     main_rank = mesh is None or mesh.is_main
     verbose = verbose and main_rank
     probe_lanes = mesh.data if probe_parallel else None
+    sharded = mesh is not None and not probe_parallel and mesh.world > 1
     cfg = model_cfg or (get_smoke_config(arch) if smoke else get_config(arch))
-    model = build_model(cfg, device)
+    model = build_model(cfg, rank_device(mesh, device))
     dev = model.device
     if mesh is not None and mesh.world > 1 and dev.type == "cuda":
         if main_rank:  # one build for the ranks that share the card
@@ -214,7 +232,11 @@ def train(
         probe_parallel=probe_parallel, adaptive_q=adaptive_q, q_max=q_max, seed=seed,
         total_steps=steps,
     )
-    params = model.init(PRNGKey(seed)) if init_params is None else init_params
+    # a sharded run draws each rank's shards alone (sharding.init_state),
+    # unless the pretraining or the spectral ranks need the whole params
+    whole = not sharded or pretrain_steps > 0 or rank_mode == "spectral"
+    params = init_params if init_params is not None else (
+        model.init(PRNGKey(seed)) if whole else None)
     setup: dict = {}
     if pretrain_steps > 0:
         t0 = time.perf_counter()
@@ -242,23 +264,39 @@ def train(
         setup.update(sel)
         if verbose:
             print(f"[train] {json.dumps(sel)}", flush=True)
-    state = init_zo_state(params, zo_cfg, ranks, masks)
-    del params
-    if ensemble > 1:
-        sim = StragglerSim(ensemble, straggler_prob, seed=seed + 99)
-        step_fn = build_ensemble_zo_train_step(
-            model.loss_fn, zo_cfg, ensemble,
-            straggler_mask_fn=sim.mask_fn() if straggler_prob > 0 else None)
+    shard, loss_fn = None, model.loss_fn
+    if sharded:  # each rank keeps its shards
+        state, shard = sharding.init_state(model, zo_cfg, mesh, PRNGKey(seed), params,
+                                           ranks, masks)
+        loss_fn = sharding.sharded_loss(model)
     else:
-        step_fn = build_zo_train_step(model.loss_fn, zo_cfg, mesh=mesh)
+        state = init_zo_state(params, zo_cfg, ranks, masks)
+    del params
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if ckpt and ckpt.latest_step() is not None:
-        state, extra = ckpt.restore(state)
+        if shard is None:
+            state, extra = ckpt.restore(state)
+        else:  # each rank reads its shards onto its device
+            state, extra = ckpt.restore(shard.whole_state, shardings=shard.state_specs,
+                                        mesh=mesh, device=dev)
         start_step = int(extra.get("step", state.step))
         if main_rank:
             print(f"[train] restored step {start_step} from {ckpt.dir}")
+    if shard is not None and dev.type == "cuda":
+        torch.cuda.empty_cache()  # the whole params' blocks where they were cut
+    resident = tree_size_bytes(state.params) + tree_size_bytes(state.mstate)
+
+    def build_step(cfg_b):
+        if ensemble > 1:
+            sim = StragglerSim(ensemble, straggler_prob, seed=seed + 99)
+            return build_ensemble_zo_train_step(
+                loss_fn, cfg_b, ensemble,
+                straggler_mask_fn=sim.mask_fn() if straggler_prob > 0 else None, shard=shard)
+        return build_zo_train_step(loss_fn, cfg_b, mesh=mesh, shard=shard)
+
+    step_fn = build_step(zo_cfg)
 
     eval_batch = to_device(batch_at_step(data, 999_999_999), dev)
     controller = AdaptiveQ(q=zo_cfg.q_probes, q_max=zo_cfg.q_max) if adaptive_q else None
@@ -296,15 +334,19 @@ def train(
                     new_q = controller.observe(float(metrics["kappa_var"]), rec["kappa_abs"])
                     if new_q is not None:  # the step is built for one q: rebuild it
                         zo_cfg = dataclasses.replace(zo_cfg, q_probes=new_q)
-                        step_fn = build_zo_train_step(model.loss_fn, zo_cfg, mesh=mesh)
+                        step_fn = build_step(zo_cfg)
                         rec["q_probes"] = new_q
                 if (step_idx + 1) % eval_every == 0:
-                    rec["eval_loss"] = float(model.loss_fn(state.params, eval_batch))
+                    with sharding.placed(shard):
+                        rec["eval_loss"] = float(model.loss_fn(state.params, eval_batch))
                 history.append(rec)
                 if verbose:
                     print(f"[train] {json.dumps(rec)}", flush=True)
-            if ckpt and main_rank and (step_idx + 1) % ckpt_every == 0:
-                ckpt.save_async(step_idx + 1, state, extra={"step": step_idx + 1})
+            if ckpt and (step_idx + 1) % ckpt_every == 0:
+                save = state if shard is None else sharding.gather_tree(
+                    state, shard.state_specs, mesh, device="cpu")  # every rank takes part
+                if main_rank:
+                    ckpt.save_async(step_idx + 1, save, extra={"step": step_idx + 1})
     finally:
         prefetch.close()
         if ckpt:
@@ -313,7 +355,8 @@ def train(
         torch.cuda.synchronize(dev)
     steady_s = 0.0 if t_steady is None else time.perf_counter() - t_steady
 
-    final_eval = float(model.loss_fn(state.params, eval_batch))
+    with sharding.placed(shard):  # the whole state's loss: layers gathered, whole batch
+        final_eval = float(model.loss_fn(state.params, eval_batch))
     result = {
         "arch": cfg.name,
         "method": method,
@@ -324,6 +367,11 @@ def train(
         "weight_quant": weight_quant,
         "probe_parallel": probe_parallel,
         "probe_lanes": probe_lanes,
+        "sharded": sharded,
+        "mesh": None if mesh is None else f"{mesh.data},{mesh.model}",
+        "collective_backend": None if mesh is None or mesh.world == 1 else mesh.backend,
+        # this rank's params + method state after placement (its shards)
+        "resident_bytes": resident,
         # per step: the busiest lane's with probe-parallel; the ensemble's
         # 2n + 1 (n members off the original params, then the update)
         "zo_passes": (zo_pass_count(ensemble, "exact") if ensemble > 1 else
@@ -342,6 +390,7 @@ def train(
     if return_state:
         result["state"] = state
         result["setup"] = setup
+        result["shard"] = shard  # sharding.gather_tree(state, shard.state_specs, mesh)
     return result
 
 
@@ -385,8 +434,11 @@ def main(argv=None) -> None:
     ap.add_argument("--log-file", default=None)
     ap.add_argument("--mesh", default=None, metavar="host:D,M",
                     help="run D·M ranks of this command on this machine (rank 0 spawns the "
-                    "others unless a launcher started them), the q probes over the D data "
-                    "lanes; needs --probe-parallel")
+                    "others unless a launcher started them): with --probe-parallel the q "
+                    "probes over the D data lanes, else the params and ZO state stored "
+                    "sharded on both axes, FSDP-style: each layer gathered whole just in "
+                    "time for the forward, the experts of a config whose moe_impl is ep "
+                    "computed expert-parallel over the model axis")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; the hand-written kernels) or cpu (their "
                     "plain PyTorch versions)")
@@ -400,10 +452,11 @@ def main(argv=None) -> None:
         result = train(**kwargs)
     else:
         _check_options(mesh=args.mesh, probe_parallel=args.probe_parallel,
-                       ensemble=args.ensemble, adaptive_q=args.adaptive_q, method=args.method)
+                       ensemble=args.ensemble, adaptive_q=args.adaptive_q, method=args.method,
+                       weight_quant=args.weight_quant)
         d, m = parse_mesh(args.mesh)
         with host_ranks(d * m, [sys.executable, "-m", "repro_torch.launch.train", *argv]) as rank:
-            kwargs["mesh"] = make_host_mesh(d, m)
+            kwargs["mesh"] = make_host_mesh(d, m, device=args.device)
             result = train(**kwargs)
         if rank != 0:
             return

@@ -34,6 +34,7 @@ from repro_torch.kernels.selective_scan import selective_scan_plain
 from repro_torch.models import layers
 from repro_torch.models.spec import PSpec
 from repro_torch.models.transformer import TransformerLM, torch_dtype
+from repro_torch.utils import shard_ctx
 
 
 class HymbaLM:
@@ -86,7 +87,7 @@ class HymbaLM:
             "lm_head": PSpec((D, c.vocab_size), ("embed", "vocab"), scale=s),
         }
 
-    _layer = staticmethod(TransformerLM._layer)
+    _layer = TransformerLM._layer
     _rope = TransformerLM._rope
     _qkv = TransformerLM._qkv
     _ln1 = TransformerLM._ln1
@@ -176,16 +177,19 @@ class HymbaLM:
         c = self.cfg
         # a gather; its gradient sums in a fixed order (indexing's
         # accumulate=True backward on the CPU does not)
-        x = F.embedding(batch["tokens"], params["embed"])
+        x = F.embedding(batch["tokens"], shard_ctx.whole(params, "embed"))
         sin, cos = self._rope(torch.arange(x.shape[1], device=x.device))
         for i in range(c.n_layers):
             x = self._block(self._layer(params, i), x, sin, cos, grad)[0]
-        return layers.rms_norm(x, params["final_norm"], c.norm_eps)
+        return layers.rms_norm(x, shard_ctx.whole(params, "final_norm"), c.norm_eps)
 
-    def loss_fn(self, params, batch, grad: bool = False) -> torch.Tensor:
+    def loss_fn(self, params, batch, grad: bool = False, sums: bool = False):
+        """Mean next-token cross-entropy (``sums``: its NLL sum and token
+        count); ``grad`` as in :meth:`hidden_states`."""
         x = self.hidden_states(params, batch, grad)
-        logits = layers.weight_matmul(x, params["lm_head"])
-        return layers.cross_entropy(logits, batch["targets"], batch.get("mask"))
+        logits = layers.weight_matmul(x, shard_ctx.whole(params, "lm_head"))
+        ce = layers.cross_entropy_sums if sums else layers.cross_entropy
+        return ce(logits, batch["targets"], batch.get("mask"))
 
     # ------------------------------------------------------------------
     # serving: ring-window KV + SSM state (O(1) in context length)
@@ -194,19 +198,22 @@ class HymbaLM:
         c = self.cfg
         return min(max_len, c.window) if c.window > 0 else max_len
 
-    def init_cache(self, batch_size: int, max_len: int):
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        """The ring-window KV, SSM state and conv tail, zeroed; ``pos`` a
+        host 0.  ``device="meta"``: the reference's ``abstract=True``
+        stand-ins (``pos`` an int32 scalar)."""
         c = self.cfg
         L, B = c.n_layers, batch_size
         Tc = self.cache_capacity(max_len)
         Di, N, Cw = self.d_inner, c.ssm_state, c.conv_width
         dt = torch_dtype(c.decode_cache_dtype)
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
         return {
             "k": torch.zeros((L, B, Tc, c.n_kv_heads, c.head_dim), dtype=dt, device=dev),
             "v": torch.zeros((L, B, Tc, c.n_kv_heads, c.head_dim), dtype=dt, device=dev),
             "ssm": torch.zeros((L, B, Di, N), dtype=torch.float32, device=dev),
             "conv": torch.zeros((L, B, Cw - 1, Di), dtype=dt, device=dev),
-            "pos": 0,
+            "pos": torch.empty((), dtype=torch.int32, device=dev) if dev.type == "meta" else 0,
         }
 
     def prefill(self, params, batch, max_len: int):

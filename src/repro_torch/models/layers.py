@@ -213,13 +213,28 @@ def gated_mlp(x, w_gate, w_up, w_down, activation="swiglu"):
 # --------------------------------------------------------------------------
 
 
+def _token_nll(logits, targets):
+    """Each token's NLL in f32: logsumexp − gold logit."""
+    logits = logits.float()
+    gold = torch.take_along_dim(logits, targets.long()[..., None], dim=-1)[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def cross_entropy_sums(logits, targets, mask=None):
+    """(sum of the token NLLs, token count), f32 scalars, masked by a {0,1}
+    ``mask`` when given: the parts of :func:`cross_entropy` that a sharded
+    loss adds over the data lanes before it divides."""
+    nll = _token_nll(logits, targets)
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask), torch.sum(mask)
+    return torch.sum(nll), nll.new_full((), float(nll.numel()))
+
+
 def cross_entropy(logits, targets, mask=None):
     """Mean token NLL in f32: logsumexp − gold logit, masked mean when a
     {0,1} ``mask`` [B, S] is given.  logits [B, S, V], targets [B, S]."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, targets.long()[..., None], dim=-1)[..., 0]
-    nll = logz - gold
+    nll = _token_nll(logits, targets)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -4,7 +4,11 @@ serving paths.  The ``dense``, ``moe``, ``vlm`` and ``audio`` families
 (``models.transformer``; a vlm or audio batch may carry prefix ``embeds
 [B, P, D]``, the modality stubs), the ``hybrid`` family (``models.hymba``)
 and the ``ssm`` family (``models.xlstm``) are ported; only the transformer
-families have the paged serving paths."""
+families have the paged serving paths.  The reference's input helpers are here
+too: the abstract params and logical axes of the spec tree, the batch
+layout of an assigned shape (:class:`~repro_torch.configs.base.ShapeConfig`),
+its meta-tensor specs and :meth:`LM.make_inputs`, which draws the
+reference's synthetic batch bit for bit."""
 
 from __future__ import annotations
 
@@ -12,11 +16,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.hymba import HymbaLM
-from repro_torch.models.spec import init_params
+from repro_torch.models.spec import abstract_params, init_params, logical_axes
 from repro_torch.models.transformer import TransformerLM, torch_dtype
 from repro_torch.models.xlstm import XLSTMLM
+from repro_torch.utils import jax_random
 from repro_torch.utils.device import resolve_device
 
 
@@ -40,11 +45,23 @@ class LM:
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.dtype)
 
-    def init(self, key) -> Any:
+    def init(self, key, shard=None) -> Any:
         """The reference's random parameters for ``key``
         (``utils.jax_random.PRNGKey(seed)``), drawn on this model's device
-        (see models/spec.py)."""
-        return init_params(self._specs, key, self.dtype, self.device)
+        (see models/spec.py).  With ``shard`` (a ``utils.shard_ctx.ShardCtx``)
+        each leaf is this rank's shard, drawn alone: bitwise the whole
+        draw's slice, and no rank draws or holds the whole model."""
+        return init_params(self._specs, key, self.dtype, self.device,
+                           None if shard is None else shard.slices)
+
+    def abstract_params(self) -> Any:
+        """Meta tensors of the params' shapes and dtypes."""
+        return abstract_params(self._specs, self.dtype)
+
+    def logical_axes(self) -> Any:
+        """Each leaf's logical axis names (``distributed.sharding`` maps them
+        onto a mesh)."""
+        return logical_axes(self._specs)
 
     # ---- train ------------------------------------------------------------
     def loss_fn(self, params: Any, batch: Any) -> torch.Tensor:
@@ -52,6 +69,13 @@ class LM:
         forward without autograd, as ZO training never differentiates."""
         with torch.inference_mode():
             return self.impl.loss_fn(params, batch)
+
+    def loss_sums(self, params: Any, batch: Any) -> tuple:
+        """(NLL sum, token count) of the batch, f32 scalars on the device:
+        what a sharded loss adds over the data lanes before it divides
+        (``distributed.sharding.sharded_loss``)."""
+        with torch.inference_mode():
+            return self.impl.loss_fn(params, batch, sums=True)
 
     def fo_loss_fn(self, params: Any, batch: Any) -> torch.Tensor:
         """The same loss with autograd, for the first-order step
@@ -69,8 +93,10 @@ class LM:
     def decode_step(self, params: Any, cache: Any, tokens: torch.Tensor):
         return self.impl.decode_step(params, cache, tokens)
 
-    def init_cache(self, batch_size: int, max_len: int):
-        return self.impl.init_cache(batch_size, max_len)
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        """The family's decode cache on this model's device, or on
+        ``device`` (``"meta"``: the reference's ``abstract=True`` specs)."""
+        return self.impl.init_cache(batch_size, max_len, device)
 
     # ---- paged serving (continuous-batching engine) -----------------------
     @property
@@ -93,6 +119,49 @@ class LM:
 
     def verify_step_paged(self, params, cache, block_tables, lengths, tokens):
         return self.impl.verify_step_paged(params, cache, block_tables, lengths, tokens)
+
+    # ---- inputs -----------------------------------------------------------
+    def _batch_layout(self, shape: ShapeConfig) -> dict:
+        """Sequence budget split between stub prefix embeds and tokens."""
+        P = min(self.cfg.n_prefix_embeds, max(shape.seq_len - 1, 0))
+        return {"prefix": P, "tokens": shape.seq_len - P}
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Meta-tensor stand-ins for a *training* batch of this shape."""
+        lay = self._batch_layout(shape)
+        B, P, S = shape.global_batch, lay["prefix"], lay["tokens"]
+        batch = {
+            "tokens": torch.empty((B, S), dtype=torch.int32, device="meta"),
+            "targets": torch.empty((B, S), dtype=torch.int32, device="meta"),
+        }
+        if P > 0:
+            batch["embeds"] = torch.empty((B, P, self.cfg.d_model), dtype=self.dtype,
+                                          device="meta")
+        return batch
+
+    def decode_input_specs(self, shape: ShapeConfig) -> dict:
+        """(cache, tokens) stand-ins for a decode-shape cell: one new token
+        against a cache of ``shape.seq_len`` context (a windowed config's
+        ring holds the window)."""
+        B = shape.global_batch
+        return {"cache": self.init_cache(B, shape.seq_len, device="meta"),
+                "tokens": torch.empty((B,), dtype=torch.int32, device="meta")}
+
+    def make_inputs(self, key, shape: ShapeConfig) -> dict:
+        """The reference's synthetic batch for ``key`` (a ``jax_random`` key),
+        on this model's device: ``randint`` tokens over the vocabulary, split
+        into tokens and next-token targets, and for a prefix-embed family
+        ``normal * 0.02`` embeds in the model dtype."""
+        c = self.cfg
+        lay = self._batch_layout(shape)
+        B, P, S = shape.global_batch, lay["prefix"], lay["tokens"]
+        kt, ke = jax_random.split(key)
+        tokens = jax_random.randint(kt, (B, S + 1), 0, c.vocab_size).to(self.device)
+        batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+        if P > 0:
+            embeds = jax_random.normal(ke, (B, P, c.d_model), self.device) * 0.02
+            batch["embeds"] = embeds.to(self.dtype)
+        return batch
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> LM:

@@ -7,16 +7,18 @@ per block leaf — and a plain Python loop over layers takes the place of
 the optional QKV biases (qwen2.5) and qk-norm (qwen3), full causal
 attention, the SwiGLU, GeGLU or 2-matrix GELU FFN, and the capacity-bounded
 top-k MoE FFN of dbrx-132b and kimi-k2 (the reference's single-device
-``_moe_gspmd``; its expert-parallel ``_moe_ep`` needs a mesh); the training
-forward and its ``loss_fn``, dense-cache prefill/decode and the paged
-serving paths, speculative verify included.  The modality frontends
+``_moe_gspmd``; its expert-parallel ``_moe_ep``, which runs on a mesh with a model axis);
+sliding-window attention (``window`` > 0) with the ring-buffered dense
+cache; the training forward and its ``loss_fn``, dense-cache
+prefill/decode and the paged serving paths (full causal attention only),
+speculative verify included.  The modality frontends
 (paligemma, musicgen) are stubs, as in the reference: a batch may carry
 precomputed prefix embeddings ``embeds [B, P, D]``, concatenated before
 the token embeddings, and the loss is taken on the token positions.
 Every weight matmul goes through ``layers.weight_matmul``, so a block
 leaf may be a quantized ``core.quant.QuantLeaf`` (the MoE's router and
-expert leaves never are).  The sliding-window ring cache and chunked
-cross-entropy are not ported yet (ROADMAP.md).
+expert leaves never are).  Chunked cross-entropy is not ported yet
+(ROADMAP.md).
 
 The caches are updated in place (the reference returns new arrays): the
 paged pool is the serving engine's largest allocation and a copy per step
@@ -35,10 +37,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import layers
 from repro_torch.models.spec import PSpec
+from repro_torch.utils import shard_ctx
+
+_EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def ep_mesh(cfg: ModelConfig):
+    """The mesh the expert-parallel MoE runs on: the current mesh
+    (``utils.shard_ctx.current_mesh``) when ``moe_impl == "ep"`` and it has a model
+    axis > 1, else None (the single-device path, as the reference takes
+    without its ``spmd_hints``)."""
+    mesh = shard_ctx.current_mesh()
+    if cfg.n_experts > 0 and cfg.moe_impl == "ep" and mesh is not None and mesh.model > 1:
+        return mesh
+    return None
 
 
 class MoERoute(NamedTuple):
@@ -149,9 +165,9 @@ class TransformerLM:
         B, S, _ = x.shape
         q, k, v = self._qkv(p, self._ln1(p, x), sin, cos)
         if grad:  # no kernel has a backward: autograd runs through the plain version
-            o = flash_attention_plain(q, k, v, causal=True, q_offset=q_offset)
+            o = flash_attention_plain(q, k, v, causal=True, window=c.window, q_offset=q_offset)
         else:
-            o = layers.attention(q, k, v, q_offset=q_offset,
+            o = layers.attention(q, k, v, window=c.window, q_offset=q_offset,
                                  chunked_min_seq=c.attn_chunked_min_seq)
         o = layers.weight_matmul(o.reshape(B, S, -1), p["wo"])
         return o, (k, v)
@@ -184,14 +200,66 @@ class TransformerLM:
         in_cap = (pos < capacity) & (pos >= 0)
         return MoERoute(probs, gate, e_flat, pos, in_cap, capacity)
 
+    def _experts(self, buf, wg, wu, wd):
+        """The experts' gated FFN on their dispatch buffers [E, C, D]: batched
+        matmuls in the weight dtype, the activation in f32, as the
+        reference's einsums run outside any kernel."""
+        ge = layers.weight_matmul(buf, wg)  # [E, C, F]
+        ue = layers.weight_matmul(buf, wu)
+        if self.cfg.activation == "swiglu":
+            ae = torch.nn.functional.silu(ge.float()).to(ue.dtype)
+        else:
+            ae = torch.nn.functional.gelu(ge.float(), approximate="tanh").to(ue.dtype)
+        return layers.weight_matmul(ae * ue, wd)
+
+    def _moe_ep(self, p, h, mesh):
+        """Expert-parallel MoE, the reference's ``_moe_ep`` step for step:
+        this rank's tokens ``h [B_l, S, D]`` (its data share) route over
+        all E experts, but only the E/M experts local to its model index
+        take them (``p``'s expert leaves hold those, or the whole stack,
+        which is cut here), under a capacity of ``max(1, ceil(N_l·K/E·cf))``
+        over its N_l tokens; the combined outputs are summed over the model
+        axis in rank order.  The routing is :meth:`moe_route`'s on the
+        rank's tokens (top-k the stable descending sort, ``layers.top_k``)."""
+        c = self.cfg
+        B, S, D = h.shape
+        E, K, M = c.n_experts, c.n_experts_per_token, mesh.model
+        if E % M:
+            raise ValueError(f"{E} experts do not split over a model axis of {M}")
+        E_loc, col = E // M, mesh.model_index
+        wg, wu, wd = (p[name] for name in _EXPERT_LEAVES)
+        if wg.shape[0] == E:  # whole stacks: this rank's experts
+            wg, wu, wd = (w[col * E_loc:(col + 1) * E_loc] for w in (wg, wu, wd))
+        xt = h.reshape(B * S, D)
+        n_l = xt.shape[0]
+        r = self.moe_route(p, xt)  # capacity over the n_l local tokens
+        C = r.capacity
+        e_rel = r.experts - col * E_loc
+        loc = (e_rel >= 0) & (e_rel < E_loc)
+        # a local entry's position among its expert's entries is the same
+        # whether the other experts' entries are counted or not
+        in_cap = loc & r.in_capacity
+        dest = torch.clamp(e_rel, 0, E_loc - 1) * C + torch.clamp(r.positions, 0, C - 1)
+        w_in = in_cap.to(xt.dtype)
+        src = torch.repeat_interleave(xt, K, dim=0) * w_in[:, None]
+        buf = xt.new_zeros(E_loc * C, D).index_add(0, dest, src).view(E_loc, C, D)
+        ye = self._experts(buf, wg, wu, wd)  # [E_loc, C, D]
+        out = ye.reshape(E_loc * C, D).index_select(0, dest)
+        out = out * (r.gates.reshape(-1) * w_in.float()).to(out.dtype)[:, None]
+        y = out.reshape(n_l, K, D).sum(dim=1)
+        return shard_ctx.sum_in_rank_order(y, mesh, over="model").reshape(B, S, D)
+
     def _moe(self, p, h):
         """Capacity-bounded top-k MoE with scatter dispatch and gather
         combine: the reference's ``_moe_gspmd``, step for step, on one
-        device (``moe_impl="ep"`` takes it too, as the reference does
-        without a mesh).  All ``N = B·S`` tokens of the call route under one
-        capacity (:meth:`moe_route`), pad and dead-slot tokens included.
-        The expert products are batched matmuls over ``[E, C, D]``, as the
-        reference's einsums run outside any kernel."""
+        device; with ``moe_impl="ep"`` on a mesh with a model axis > 1,
+        :meth:`_moe_ep` (without one, ``ep`` takes this path too, as the
+        reference does).  All ``N = B·S`` tokens of the call route under one
+        capacity (:meth:`moe_route`), pad and dead-slot tokens included; the
+        experts run as :meth:`_experts`."""
+        mesh = ep_mesh(self.cfg)
+        if mesh is not None:
+            return self._moe_ep(p, h, mesh)
         c = self.cfg
         B, S, D = h.shape
         E, K = c.n_experts, c.n_experts_per_token
@@ -202,13 +270,7 @@ class TransformerLM:
         w = r.in_capacity.to(xt.dtype)[:, None]
         src = torch.repeat_interleave(xt, K, dim=0) * w  # [N*K, D]
         buf = xt.new_zeros(E * C, D).index_add(0, dest, src).view(E, C, D)
-        ge = layers.weight_matmul(buf, p["we_gate"])  # [E, C, F]
-        ue = layers.weight_matmul(buf, p["we_up"])
-        if c.activation == "swiglu":
-            ae = torch.nn.functional.silu(ge.float()).to(ue.dtype)
-        else:
-            ae = torch.nn.functional.gelu(ge.float(), approximate="tanh").to(ue.dtype)
-        ye = layers.weight_matmul(ae * ue, p["we_down"])  # [E, C, D]
+        ye = self._experts(buf, p["we_gate"], p["we_up"], p["we_down"])  # [E, C, D]
 
         gathered = ye.reshape(E * C, D).index_select(0, dest)  # [N*K, D]
         gathered = gathered * (r.gates.reshape(-1)[:, None].to(gathered.dtype) * w)
@@ -220,11 +282,14 @@ class TransformerLM:
         x = x + self._ffn(p, x)
         return x, kv
 
-    @staticmethod
-    def _layer(params, i: int) -> dict:
+    def _layer(self, params, i: int) -> dict:
         """Layer ``i`` of every stacked block leaf (a QuantLeaf indexes each
-        of its tensors)."""
-        return {name: w[i] for name, w in params["blocks"].items()}
+        of its tensors).  On sharded params the layer's leaves are gathered
+        here, just in time (``utils.shard_ctx.layer``), the expert
+        stacks only over the data axis when the MoE runs expert-parallel."""
+        keep = ({name: ("model",) for name in _EXPERT_LEAVES}
+                if ep_mesh(self.cfg) is not None else None)
+        return shard_ctx.layer(params, i, keep)
 
     # ------------------------------------------------------------------
     # forward
@@ -235,7 +300,7 @@ class TransformerLM:
         ``embeds`` [B, P, D] (cast to the embeddings' dtype): [B, P + S, D]."""
         # a gather; its gradient sums in a fixed order (indexing's
         # accumulate=True backward on the CPU does not)
-        x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+        x = torch.nn.functional.embedding(batch["tokens"], shard_ctx.whole(params, "embed"))
         if batch.get("embeds") is not None:
             x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
         return x
@@ -255,65 +320,88 @@ class TransformerLM:
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
-        x = layers.rms_norm(x, params["final_norm"], c.norm_eps)
+        x = layers.rms_norm(x, shard_ctx.whole(params, "final_norm"), c.norm_eps)
         return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
 
-    def loss_fn(self, params, batch, grad: bool = False) -> torch.Tensor:
+    def loss_fn(self, params, batch, grad: bool = False, sums: bool = False):
         """Mean next-token cross-entropy of ``batch`` (tokens, targets and
         an optional mask, each [B, S], and optional prefix ``embeds`` [B, P,
         D], whose P rows the loss drops) as an f32 scalar on the device;
-        ``grad`` as in :meth:`hidden_states`."""
+        ``grad`` as in :meth:`hidden_states`; ``sums``: the (NLL sum, token
+        count) pair instead (``layers.cross_entropy_sums``)."""
         x, _ = self.hidden_states(params, batch, grad=grad)
         P = 0 if batch.get("embeds") is None else batch["embeds"].shape[1]
-        logits = layers.weight_matmul(x[:, P:, :], params["lm_head"])
-        return layers.cross_entropy(logits, batch["targets"], batch.get("mask"))
+        logits = layers.weight_matmul(x[:, P:, :], shard_ctx.whole(params, "lm_head"))
+        ce = layers.cross_entropy_sums if sums else layers.cross_entropy
+        return ce(logits, batch["targets"], batch.get("mask"))
 
     # ------------------------------------------------------------------
     # serving: prefill + single-token decode against a dense KV cache
     # ------------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_len: int):
+    def cache_capacity(self, max_len: int) -> int:
+        """Positions the dense cache holds: the window for a sliding-window
+        config (a ring), else ``max_len``."""
         c = self.cfg
-        shape = (c.n_layers, batch_size, max_len, c.n_kv_heads, c.head_dim)
+        return min(max_len, c.window) if c.window > 0 else max_len
+
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        """Zeros of the reference's dense cache: k/v [L, B, Tc, KV, dh] in
+        the cache dtype, Tc = :meth:`cache_capacity`, and ``pos`` (a host 0).
+        ``device="meta"`` gives the reference's ``abstract=True`` stand-ins:
+        meta tensors, ``pos`` an int32 scalar."""
+        c = self.cfg
+        shape = (c.n_layers, batch_size, self.cache_capacity(max_len), c.n_kv_heads,
+                 c.head_dim)
         dt = torch_dtype(c.decode_cache_dtype)
+        dev = self.device if device is None else torch.device(device)
+        pos = torch.empty((), dtype=torch.int32, device=dev) if dev.type == "meta" else 0
         return {
-            "k": torch.zeros(shape, dtype=dt, device=self.device),
-            "v": torch.zeros(shape, dtype=dt, device=self.device),
-            "pos": 0,
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "pos": pos,
         }
 
     def prefill(self, params, batch, max_len: int):
         """Full forward over the prompt; returns last-position logits and a
-        cache of ``max_len`` positions holding the prompt's.  ``pos`` is a
-        host int.  (The reference's ring buffer serves sliding-window
-        configs, which the port does not have yet.)"""
+        populated cache.  ``pos`` is a host int.  A sliding-window config
+        keeps the last Tc positions in a ring, position p in slot p % Tc, as
+        the reference does; a full-causal one needs ``max_len`` >= the
+        prompt."""
         x, (k_all, v_all) = self.hidden_states(params, batch, collect_kv=True)
         S = k_all.shape[2]
-        if S > max_len:
+        if S > max_len and self.cfg.window == 0:
             raise ValueError(f"prompt of {S} tokens exceeds the cache's {max_len}")
         cache = self.init_cache(k_all.shape[1], max_len)
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, :, :S] = k_all.to(k_cache.dtype)
-        v_cache[:, :, :S] = v_all.to(v_cache.dtype)
+        Tc = k_cache.shape[2]
+        if S >= Tc:
+            k_all = torch.roll(k_all[:, :, S - Tc:], S % Tc, dims=2)
+            v_all = torch.roll(v_all[:, :, S - Tc:], S % Tc, dims=2)
+        k_cache[:, :, :k_all.shape[2]] = k_all.to(k_cache.dtype)
+        v_cache[:, :, :v_all.shape[2]] = v_all.to(v_cache.dtype)
         logits = layers.weight_matmul(x[:, -1, :], params["lm_head"])
         return logits, {"k": k_cache, "v": v_cache, "pos": S}
 
     def decode_step(self, params, cache, tokens):
-        """One token for the whole batch: tokens [B] -> logits [B, V]."""
+        """One token for the whole batch: tokens [B] -> logits [B, V].  The
+        new KV lands in slot ``pos % Tc``; a sliding-window ring attends to
+        every slot once it is full, a full-causal cache raises then."""
         c = self.cfg
         pos = int(cache["pos"])
         Tc = cache["k"].shape[2]
-        if pos >= Tc:
+        if pos >= Tc and c.window == 0:
             raise ValueError(f"the cache's {Tc} positions are full")
         B = tokens.shape[0]
         x = params["embed"][tokens][:, None, :]  # [B, 1, D]
         sin, cos = self._rope(torch.tensor([pos], device=x.device))
-        valid = torch.arange(Tc, device=x.device) <= pos
+        slot = pos % Tc
+        valid = (torch.arange(Tc, device=x.device) <= pos) | (pos >= Tc)
         for i in range(c.n_layers):
             p = self._layer(params, i)
             k_l, v_l = cache["k"][i], cache["v"][i]
             q, k, v = self._qkv(p, self._ln1(p, x), sin, cos)
-            k_l[:, pos] = k[:, 0].to(k_l.dtype)
-            v_l[:, pos] = v[:, 0].to(v_l.dtype)
+            k_l[:, slot] = k[:, 0].to(k_l.dtype)
+            v_l[:, slot] = v[:, 0].to(v_l.dtype)
             o = layers.decode_attention(q, k_l, v_l, valid)
             x = x + layers.weight_matmul(o.reshape(B, 1, -1), p["wo"])
             x = x + self._ffn(p, x)
@@ -324,6 +412,14 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # paged serving: block-table KV pages for the continuous-batching engine
     # ------------------------------------------------------------------
+    def _refuse_window(self, entry: str) -> None:
+        """The paged pool does not ring: the reference asserts ``window ==
+        0`` on its paged entries."""
+        if self.cfg.window > 0:
+            raise ValueError(f"{entry} requires full causal attention (window == 0); "
+                             f"{self.cfg.name} has window {self.cfg.window}: serve it "
+                             "with prefill/decode_step")
+
     def init_paged_cache(self, n_pages: int, page_size: int):
         """Shared KV page pool [L, n_pages, page_size, KV, dh].  Page 0 is
         reserved as the null page: free slots' decode writes are routed
@@ -340,7 +436,9 @@ class TransformerLM:
         """Prefill one bucket-padded prompt ([1, Sb] int, padding AFTER the
         prompt) and return the per-layer KV for page insertion.  Logits are
         taken at position true_len - 1; the pad tail is causally downstream
-        and never read.  Returns (logits [1, V], k_all, v_all [L, Sb, KV, dh])."""
+        and never read.  Returns (logits [1, V], k_all, v_all [L, Sb, KV, dh]).
+        Full causal attention only: the paged pool does not ring."""
+        self._refuse_window("prefill_paged")
         x, (k_all, v_all) = self.hidden_states(params, {"tokens": tokens}, collect_kv=True)
         x_last = x[:, int(true_len) - 1, :]
         logits = layers.weight_matmul(x_last, params["lm_head"])
@@ -371,6 +469,7 @@ class TransformerLM:
         invariant to the other slots, except the MoE's routing: its S tokens
         (dead slots' too) share one capacity, as in the reference.  Returns
         (logits [S, V], cache)."""
+        self._refuse_window("decode_step_paged")
         logits, cache = self.verify_step_paged(params, cache, block_tables, lengths,
                                                tokens[:, None])
         return logits[:, 0], cache
@@ -400,6 +499,7 @@ class TransformerLM:
         attends through the decode kernel, the verify kernel's instructions
         at T = 1.  Returns (logits [S, T, V], cache)."""
         c = self.cfg
+        self._refuse_window("verify_step_paged")
         S, T = tokens.shape
         ps = cache["k"].shape[2]
         P = block_tables.shape[1]

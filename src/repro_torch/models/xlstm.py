@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.spec import PSpec
+from repro_torch.utils import shard_ctx
 
 CARD_CHUNK = 256  # the chunk a CUDA tensor takes when cfg.mlstm_chunk is 0
 
@@ -264,32 +265,39 @@ class XLSTMLM:
         c = self.cfg
         # a gather; its gradient sums in a fixed order (indexing's
         # accumulate=True backward on the CPU does not)
-        x = F.embedding(batch["tokens"], params["embed"])
+        x = F.embedding(batch["tokens"], shard_ctx.whole(params, "embed"))
         if batch.get("embeds") is not None:
             x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
         new_states = {}
         for li in range(c.n_layers):
             key = self._key(li)
             block = self._slstm_block if self._is_slstm(li) else self._mlstm_block
-            x, new_states[key] = block(params["blocks"][key], x,
-                                       None if states is None else states[key])
-        return layers.rms_norm(x, params["final_norm"], c.norm_eps), new_states
+            # a sharded layer's leaves are gathered here, just in time
+            p = shard_ctx.subtree(params["blocks"][key], f"['blocks'][{key!r}]")
+            x, new_states[key] = block(p, x, None if states is None else states[key])
+        return layers.rms_norm(x, shard_ctx.whole(params, "final_norm"), c.norm_eps), new_states
 
-    def loss_fn(self, params, batch, grad: bool = False) -> torch.Tensor:
-        """Mean next-token cross-entropy (f32 scalar).  ``grad`` changes
-        nothing: no kernel runs here, so autograd differentiates this
-        forward as it is (the first-order step's)."""
+    def loss_fn(self, params, batch, grad: bool = False, sums: bool = False):
+        """Mean next-token cross-entropy (f32 scalar; ``sums``: its NLL sum
+        and token count).  ``grad`` changes nothing: no kernel runs here, so
+        autograd differentiates this forward as it is (the first-order
+        step's)."""
         x, _ = self.hidden_states(params, batch)
         P = 0 if batch.get("embeds") is None else batch["embeds"].shape[1]
-        logits = layers.weight_matmul(x[:, P:, :], params["lm_head"])
-        return layers.cross_entropy(logits, batch["targets"], batch.get("mask"))
+        logits = layers.weight_matmul(x[:, P:, :], shard_ctx.whole(params, "lm_head"))
+        ce = layers.cross_entropy_sums if sums else layers.cross_entropy
+        return ce(logits, batch["targets"], batch.get("mask"))
 
     # ------------------------------------------------------------------
     # serving: the recurrent state is the cache (O(1) in context length)
     # ------------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_len: int):
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        """Each layer's recurrent state, the reference's layout; ``pos`` a
+        host 0.  ``device="meta"``: the reference's ``abstract=True``
+        stand-ins (``pos`` an int32 scalar)."""
         c = self.cfg
-        B, Nh, dev = batch_size, c.n_heads, self.device
+        B, Nh = batch_size, c.n_heads
+        dev = self.device if device is None else torch.device(device)
 
         def mk(shape, fill=0.0):
             return torch.full(shape, fill, dtype=torch.float32, device=dev)
@@ -304,7 +312,8 @@ class XLSTMLM:
                 dh = self.dh_m
                 cache[self._key(li)] = (mk((B, Nh, dh, dh)), mk((B, Nh, dh)),
                                         mk((B, Nh), -1e30))
-        cache["pos"] = 0
+        cache["pos"] = (torch.empty((), dtype=torch.int32, device=dev) if dev.type == "meta"
+                        else 0)
         return cache
 
     def prefill(self, params, batch, max_len: int):

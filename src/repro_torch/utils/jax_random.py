@@ -114,6 +114,42 @@ def fold_in(key, data: int) -> tuple[int, int]:
     return threefry2x32(k1, k2, 0, int(data) & MASK)
 
 
+def split(key, n: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split(key, n)`` as n keys.  Under the partitionable
+    Threefry, key i hashes the counter pair (0, i): ``fold_in(key, i)``."""
+    k1, k2 = as_key(key)
+    return [threefry2x32(k1, k2, 0, i) for i in range(int(n))]
+
+
+def randint(key, shape, minval: int, maxval: int, dtype=torch.int32,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` for Python
+    int bounds within int32: two 32-bit draws (under ``split(key)``'s two
+    keys), each reduced modulo the span, folded as ``hi·(2^32 mod span) +
+    lo`` in wrapping uint32 arithmetic and reduced again, as jax does (any
+    span, not only powers of two; above 2^16 the squared multiplier wraps
+    to 0 and only the low draw counts)."""
+    if dtype != torch.int32:
+        raise TypeError(f"randint draws int32, not {dtype}")
+    lo_v, hi_v = int(minval), int(maxval)
+    for v in (lo_v, hi_v):
+        if not -(2**31) <= v < 2**31:
+            raise ValueError(f"bound {v} is outside int32")
+    shape = tuple(int(d) for d in shape)
+    count = math.prod(shape)
+    ka, kb = split(key)
+    higher = _bits(*ka, 0, count, device)
+    lower = _bits(*kb, 0, count, device)
+    span = 1 if hi_v <= lo_v else (hi_v - lo_v) & MASK
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & MASK) % span  # wraps at 2^32 too (0 for a span > 2^16)
+    offset = (((higher % span) * mult) & MASK) + (lower % span)
+    offset = (offset & MASK) % span
+    out = (offset + lo_v) & MASK  # int32 wraparound of minval + offset
+    out = torch.where(out >= 1 << 31, out - (1 << 32), out)
+    return out.to(torch.int32).reshape(shape)
+
+
 def _bits(k1, k2, start: int, count: int, device) -> torch.Tensor:
     """32 random bits for flat indices [start, start + count) of a draw,
     as int64.  ``k1``/``k2`` are ints or int64 tensors of length ``count``
@@ -228,10 +264,23 @@ def normal_chunks(key, n: int, device="cpu"):
         yield start, _normal_from_bits(_bits(k1, k2, start, count, device))
 
 
+def normal_at(key, idx: torch.Tensor) -> torch.Tensor:
+    """Elements ``idx`` (int64 flat indices, any shape) of
+    ``jax.random.normal(key, (n,), float32)``: each element's bits depend
+    on its index alone, so a rank draws its shard of a leaf without the
+    rest."""
+    k1, k2 = as_key(key)
+    x1, x2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    return _normal_from_bits(x1 ^ x2)
+
+
 def normal(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)`` on ``device``."""
+    """``jax.random.normal(key, shape, float32)`` on ``device`` (on
+    ``"meta"`` the shape alone: a whole state's stand-in draws nothing)."""
     shape = tuple(int(s) for s in shape)
     out = torch.empty(math.prod(shape), dtype=torch.float32, device=device)
+    if out.device.type == "meta":
+        return out.reshape(shape)
     for start, z in normal_chunks(key, out.numel(), device):
         out[start:start + z.numel()] = z
     return out.reshape(shape)
@@ -347,8 +396,8 @@ class NormalDraws:
 
     def __call__(self, keys, sizes) -> torch.Tensor:
         sizes = np.asarray(sizes, dtype=np.int64).reshape(-1)
-        if int(sizes.sum()) == 0:
-            return torch.empty(0, dtype=torch.float32, device=self.device)
+        if int(sizes.sum()) == 0 or self.device.type == "meta":  # meta: shapes alone
+            return torch.empty(int(sizes.sum()), dtype=torch.float32, device=self.device)
         seg, idx = self._layout(sizes)
         keys_t = to_device(np.asarray(keys, dtype=np.int64).reshape(-1, 2).T.copy(), self.device)
         x1, x2 = threefry2x32(keys_t[0].index_select(0, seg), keys_t[1].index_select(0, seg),

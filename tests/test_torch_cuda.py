@@ -1386,3 +1386,64 @@ def test_probe_parallel_on_card_is_the_sequential_step(cuda, tmp_path):
     for rec in recs:
         assert rec["bitwise"] and rec["ranks_agree"] and rec["moved"], rec
         assert rec["zo_passes"] == [2 * math.ceil(rec["q"] / 2) + 1] * 2
+
+
+def test_sharded_step_on_card(cuda, tmp_path):
+    """Four ranks sharing the card (opt-125m-smoke, over gloo staged through
+    pinned host memory): TeZO-Adam and MeZO-Adam at q = 2 on a 1 x 2 mesh
+    bitwise the single-process chained step (the noise kernels at the
+    shards' offsets, the low-rank kernels on the shards), and TeZO-Adam on
+    2 x 1 in f32 within the reference's bars, with kappa_abs within 1e-3
+    relative, after a step that moved half the params past ten times the
+    params bar, and bitwise across two runs (tests/_torch_shard_rank.py)."""
+    from repro_torch.kernels import _build
+
+    _build.load()  # built once, before the ranks load it
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    proc = subprocess.run([sys.executable, str(repo / "tests" / "_torch_shard_rank.py"),
+                           str(tmp_path), "--device", "cuda", "--cases", "card"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    recs = [json.loads(line) for line in (tmp_path / "shard.jsonl").read_text().splitlines()]
+    assert len(recs) == 3
+    for rec in recs:
+        assert rec["zo_passes"] == [5, 5] and rec["resident"] < rec["resident_whole"], rec
+        if rec["data"] == 1:
+            assert rec["bitwise"], rec
+        else:  # f32 at lr 1e-2: the step moves the params past ten times the bar
+            assert rec["loss_rel"] <= 2e-4 and rec["param_diff"] <= 2e-4, rec
+            assert rec["moved"] >= 0.5 and rec["kappa_rel"] <= 1e-3, rec
+            assert rec["repeat_bitwise"], rec
+
+
+@pytest.mark.parametrize("shape,cut", [
+    ((3, 130, 257), (slice(1, 3), slice(17, 100), slice(5, 200))),
+    ((2, 4, 96, 160), (slice(None), slice(2, 4), slice(None), slice(None))),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_kernels_on_shards(cuda, shape, cut, dtype):
+    """noise_perturb and noise_update (each variant) on a shard with its
+    global offsets are bitwise the matching slice of the whole-leaf launch,
+    and equal their plain versions with the same offsets."""
+    seed = tnoise.leaf_seed(PRNGKey(5), "['blocks']['w_up']")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    w = (torch.randn(shape, generator=g) * 0.1).to(dtype).to(cuda)
+    off = [s.start or 0 for s in cut]
+    whole = tnoise.noise_perturb(w.clone(), seed, [0, 1], [1e-3, -2e-3])
+    part = tnoise.noise_perturb(w[cut].contiguous(), seed, [0, 1], [1e-3, -2e-3], offsets=off)
+    assert torch.equal(part, whole[cut])
+    assert torch.equal(part, tnoise.noise_perturb_plain(w[cut].contiguous(), seed, [0, 1],
+                                                        [1e-3, -2e-3], offsets=off))
+    kap = torch.tensor([0.4, -0.9], device=cuda)
+    m0 = torch.randn(shape, generator=g).to(cuda) * 0.01
+    v0 = torch.randn(shape, generator=g).abs().to(cuda) * 0.01
+    for variant in tnoise.VARIANTS:
+        kw = dict(decay=0.99, restore_probes=[1], restore_scales=[1e-3])
+        full = tnoise.noise_update(w.clone(), seed, kap, variant, 1e-2, 0.9, 0.99, 1e-5,
+                                   m_buf=m0.clone(), v_buf=v0.clone(), **kw)
+        mine = tnoise.noise_update(w[cut].contiguous(), seed, kap, variant, 1e-2, 0.9, 0.99,
+                                   1e-5, m_buf=m0[cut].contiguous(), v_buf=v0[cut].contiguous(),
+                                   offsets=off, **kw)
+        for a, b in zip(mine, full):
+            assert torch.equal(a, b[cut]), variant

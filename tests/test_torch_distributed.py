@@ -160,9 +160,13 @@ def test_probe_parallel_refusals():
     kw = dict(smoke=True, steps=1, device="cpu", verbose=False)
     with pytest.raises(ValueError, match="--probe-parallel requires --mesh"):
         port_train.train(probe_parallel=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 13b"):
-        port_train.train(mesh="host:2,1", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 13b"):
+    # a mesh without --probe-parallel trains sharded (tests/test_torch_sharding.py),
+    # except quantized leaves (item 13c); a step on it needs the shard context
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 13c"):
+        port_train.train(mesh="host:2,1", weight_quant="lut4", **kw)
+    with pytest.raises(ValueError, match="runs on a sharded state"):
+        build_zo_train_step(model.loss_fn, ZOConfig(method="tezo"), mesh=HostMesh(2, 1))
+    with pytest.raises(ValueError, match="does not compose with --ensemble"):
         port_train.train(mesh="host:2,1", probe_parallel=True, ensemble=2, **kw)
     with pytest.raises(ValueError, match="does not compose with --ensemble"):
         port_train.train(ensemble=2, adaptive_q=True, **kw)

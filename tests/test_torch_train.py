@@ -472,12 +472,13 @@ def test_lr_schedule_matches_reference(sched):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh="host:2,1"), dict(mesh="host:2,1", ensemble=2), dict(mesh="host:1,2"),
-    dict(mesh="host:2,2", ensemble=2, straggler_prob=0.1),
+    dict(mesh="host:2,1", weight_quant="lut4"), dict(mesh="host:1,2", weight_quant="nf4"),
+    dict(mesh="host:2,2", weight_quant="lut3", method="mezo_adam"),
+    dict(mesh="host:1,2", weight_quant="lut4", ensemble=2),
 ])
 def test_unported_options_raise(kw):
-    """Sharded parameters (``--mesh`` without ``--probe-parallel``) and the
-    ensemble on a mesh are ROADMAP item 13b; tests/test_torch_distributed.py
-    runs what item 13a ported."""
-    with pytest.raises((NotImplementedError, KeyError), match="ROADMAP.md Queue A item 13b"):
+    """Quantized leaves on a sharded mesh (``--weight-quant`` with ``--mesh``
+    and no ``--probe-parallel``) are ROADMAP item 13c; the sharded step
+    itself (item 13b) runs in tests/test_torch_sharding.py."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 13c"):
         port_train.train(smoke=True, steps=1, device="cpu", verbose=False, **kw)

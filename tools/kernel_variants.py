@@ -462,7 +462,7 @@ ROW_NOISE_BODY = """#pragma unroll
     if (col >= n) break;
     const size_t i = p.base + col;
     float z;
-    const float v = noise::chain<T>(to_f32(w[i]), ch, s0, s1, p.row, col, z);
+    const float v = noise::chain<T>(to_f32(w[i]), ch, s0, s1, p.grow, p.gcol0 + c, z);
     out[i] = from_f32<T>(v);
   }
 """
@@ -474,9 +474,9 @@ NOISE_VARIANTS = {
     "generic_chain": [("noise::chain<T, K>(", "noise::chain<T>(")],
     "thread_key": [(_between("noise_perturb.cu", "  __shared__ uint32_t key[2];",
                              "  const uint32_t s0 = key[0], s1 = key[1];\n"),
-                    "  noise::Place p;\n  if (!noise::place(p, m, n)) return;\n"
+                    "  noise::Place p;\n  if (!noise::place(p, m, n, off)) return;\n"
                     "  uint32_t s0 = k0, s1 = k1;\n"
-                    "  noise::slice_key(s0, s1, lead, blockIdx.y);\n"),
+                    "  noise::slice_key(s0, s1, lead, off, blockIdx.y);\n"),
                    ("  const uint32_t s0 = key[0], s1 = key[1];\n", "")],
     "no_cos": [("return __fmul_rn(r, glibc_cosf(__fmul_rn(0x1.921fb6p+2f, u2)));",
                 "return __fmul_rn(r, u2);")],
@@ -773,8 +773,8 @@ def main(argv: list) -> int:
                 x = w0.clone() if fresh else w
                 lead, B, m, n = zn._check_leaf(x, seed)
                 check("noise_perturb_fwd", lib.noise_perturb_fwd(
-                    x.data_ptr(), x.data_ptr(), seed[0], seed[1], chain, lead, B, m, n,
-                    _DTYPES[x.dtype], stream))
+                    x.data_ptr(), x.data_ptr(), seed[0], seed[1], chain, lead,
+                    _build.NoiseOffsets.of(None), B, m, n, _DTYPES[x.dtype], stream))
                 outs.append(x)
             return outs
 
